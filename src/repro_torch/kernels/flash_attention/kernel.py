@@ -1,0 +1,153 @@
+"""Builds, binds and launches the Hopper flash-attention forward kernel.
+
+``csrc/flash_fwd.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C entry point at first use, under
+``build/repro_torch_kernels/`` in the repository, and loaded with
+``ctypes``.  The library name carries a hash of the source, so an edited
+source is rebuilt and a built one is reused.  Nothing is built or imported
+from CUDA when this module is imported.
+
+:func:`flash_attention_fwd` takes the kernel's layout, q (B, H, Sq, hd) and
+k/v (B, K, Skv, hd) with hd 64 or 128, and counts every launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Optional
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+#: the repository root (src/repro_torch/kernels/flash_attention/kernel.py)
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[4]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SUPPORTED_HD = (64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: names the built library: a changed source or flag set builds anew
+_FLAGS_KEY = "|".join(NVCC_FLAGS).encode()
+
+_LOCK = threading.Lock()
+#: the loaded library and its build record, filled on first use
+_LIB: Dict[str, object] = {}
+_launches = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found on PATH: the flash-attention "
+                           "kernel is built from source with the CUDA toolkit")
+    return found
+
+
+def build() -> Dict[str, object]:
+    """Compile (if needed) and load the kernel library.
+
+    Returns the build record: ``path``, ``seconds`` spent compiling (0.0 when
+    a library built from the same source was found) and ``ptxas``, the
+    compiler's register/shared-memory report.
+    """
+    with _LOCK:
+        if "lib" in _LIB:
+            return _LIB
+        tag = hashlib.sha256(CSRC.read_bytes() + _FLAGS_KEY).hexdigest()[:16]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        so = BUILD_DIR / f"flash_fwd-{tag}.so"
+        log = BUILD_DIR / f"flash_fwd-{tag}.ptxas.txt"
+        seconds = 0.0
+        if not so.exists():
+            tmp = BUILD_DIR / f".flash_fwd-{tag}-{os.getpid()}.so"
+            t0 = time.perf_counter()
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                   str(CSRC)], capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            log.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, so)   # atomic: concurrent builders agree
+        lib = ctypes.CDLL(str(so))
+        fn = lib.repro_flash_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        _LIB.update(lib=lib, fn=fn, path=str(so), seconds=seconds,
+                    ptxas=log.read_text() if log.exists() else "")
+        return _LIB
+
+
+def launch_count() -> int:
+    """Kernel launches since the last :func:`reset_launch_count`."""
+    with _LOCK:
+        return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    with _LOCK:
+        _launches = 0
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
+           device: torch.device, align: int = 16) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        q_offset: Optional[torch.Tensor] = None,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention.  q: (B, H, Sq, hd)  k/v: (B, K, Skv, hd) with
+    H = G*K, on one CUDA device, float32 or bfloat16, hd in (64, 128).
+    Returns (B, H, Sq, hd) in q's dtype, launched on the current stream."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {q.dtype}; expected one of "
+                        f"{sorted(map(str, _DTYPE_CODE))}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or K == 0 or H % K:
+        raise ValueError(f"q{tuple(q.shape)} and k{tuple(k.shape)} do not "
+                         "form a GQA group")
+    if hd not in SUPPORTED_HD:
+        raise ValueError(f"head dim {hd} not in {SUPPORTED_HD}; pad it")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.dtype, q.device)
+    if q_offset is None:
+        q_offset = torch.zeros((B,), dtype=torch.int32, device=q.device)
+    _check("q_offset", q_offset, torch.int32, q.device, align=4)
+    if q_offset.shape != (B,):
+        raise ValueError(f"q_offset must be ({B},), got {tuple(q_offset.shape)}")
+    sm_scale = sm_scale if sm_scale is not None else hd ** -0.5
+    out = torch.empty_like(q)
+    fn = build()["fn"]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             q_offset.data_ptr(), B, H, K, Sq, Skv, hd, _DTYPE_CODE[q.dtype],
+             float(sm_scale), q.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err}")
+    global _launches
+    with _LOCK:
+        _launches += 1
+    return out

@@ -1,0 +1,5 @@
+"""The port's LM substrate: the dense decoder and its building blocks."""
+
+from .api import ModelApi, get_model
+from .common import Env, default_env, resolve_device
+from .convert import params_from_jax

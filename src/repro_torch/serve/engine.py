@@ -1,0 +1,148 @@
+"""Continuous-batching serving engine.
+
+Slot-based engine: ``max_batch`` sequence slots share one decode cache on
+the device; requests prefill into a free slot and then ride the batched
+decode step.  Same slots, admission, prefill-one, batched decode and finish
+rules as the reference engine (``repro/serve/engine.py``).
+
+The split of GPUs between prefill and decode pools is decided by the
+paper's MBA/SAM (see planner.py); this engine is the execution layer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.api import ModelApi
+from ..models.common import Env
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (S_prompt,) int32
+    max_new_tokens: int
+    submitted: float = 0.0
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    output: List[int] = dataclasses.field(default_factory=list)
+
+
+class ServeEngine:
+    """The KV cache is allocated once on ``env.device`` in the compute
+    dtype and updated in place by prefill inserts and decode steps.
+
+    ``timings`` holds the host seconds of every prefill (cache insert and
+    first token included) and every batched decode step; each ends in a
+    device-to-host read of the chosen tokens, so it covers the device
+    work too."""
+
+    def __init__(self, api: ModelApi, env: Env, params: Any, *,
+                 max_batch: int = 8, max_len: int = 512,
+                 eos_token: int = -1):
+        self.api = api
+        self.env = env
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos = eos_token
+        self.cache = api.init_cache(max_batch, max_len, env,
+                                    dtype=env.compute_dtype)
+        self.slot_req: List[Optional[Request]] = [None] * max_batch
+        self.slot_pos = np.zeros(max_batch, np.int32)       # next write index
+        self.slot_budget = np.zeros(max_batch, np.int32)
+        self.slot_last_token = np.zeros(max_batch, np.int32)
+        self.pending: Deque[Request] = deque()
+        self._next_rid = 0
+        self.timings: Dict[str, List[float]] = {"prefill": [], "decode": []}
+
+    # -- API ------------------------------------------------------------------
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self.pending.append(Request(rid, np.asarray(prompt, np.int32),
+                                    max_new_tokens, submitted=time.perf_counter()))
+        return rid
+
+    def has_work(self) -> bool:
+        return bool(self.pending) or any(r is not None for r in self.slot_req)
+
+    def step(self) -> List[Request]:
+        """One engine iteration: admit + prefill one request per free slot,
+        then one batched decode step.  Returns finished requests."""
+        self._admit()
+        return self._decode_tick()
+
+    def run(self, *, max_ticks: int = 10000) -> List[Request]:
+        done: List[Request] = []
+        ticks = 0
+        while self.has_work() and ticks < max_ticks:
+            done.extend(self.step())
+            ticks += 1
+        return done
+
+    # -- internals ---------------------------------------------------------------
+    def _admit(self) -> None:
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        while free and self.pending:
+            slot = free.pop(0)
+            req = self.pending.popleft()
+            t0 = time.perf_counter()
+            prompt = req.prompt[: self.max_len - req.max_new_tokens - 1]
+            tokens = torch.as_tensor(prompt[None, :], dtype=torch.long,
+                                     device=self.env.device)
+            logits, cache1 = self.api.prefill(self.env, self.params,
+                                              {"tokens": tokens},
+                                              max_len=self.max_len)
+            self._insert_cache(slot, cache1)
+            next_tok = int(torch.argmax(logits[0, -1]))
+            req.first_token_at = time.perf_counter()
+            self.timings["prefill"].append(req.first_token_at - t0)
+            req.output.append(next_tok)
+            self.slot_req[slot] = req
+            self.slot_pos[slot] = len(prompt)
+            self.slot_budget[slot] = req.max_new_tokens - 1
+            self.slot_last_token[slot] = next_tok
+
+    def _insert_cache(self, slot: int, cache1: Dict[str, torch.Tensor]) -> None:
+        # an in-place slice copy into the device cache (the reference's
+        # dynamic_update_slice builds a new array instead):
+        # dst (L, B, ...), src (L, 1, ...)
+        for name, dst in self.cache.items():
+            dst[:, slot:slot + 1].copy_(cache1[name])
+
+    def _decode_tick(self) -> List[Request]:
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return []
+        dev = self.env.device
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(self.slot_last_token[:, None],
+                                 dtype=torch.long, device=dev)
+        pos = torch.as_tensor(self.slot_pos, dtype=torch.long, device=dev)
+        logits, self.cache = self.api.decode_step(
+            self.env, self.params, self.cache, {"tokens": tokens, "pos": pos})
+        next_tokens = torch.argmax(logits[:, 0, :], dim=-1).to(
+            torch.int32).cpu().numpy()
+        self.timings["decode"].append(time.perf_counter() - t0)
+        finished: List[Request] = []
+        for slot in active:
+            req = self.slot_req[slot]
+            tok = int(next_tokens[slot])
+            req.output.append(tok)
+            self.slot_pos[slot] += 1
+            self.slot_budget[slot] -= 1
+            self.slot_last_token[slot] = tok
+            done = (self.slot_budget[slot] <= 0 or tok == self.eos
+                    or self.slot_pos[slot] >= self.max_len - 1)
+            if done:
+                req.finished_at = time.perf_counter()
+                finished.append(req)
+                self.slot_req[slot] = None
+        return finished

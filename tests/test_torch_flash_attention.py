@@ -1,0 +1,118 @@
+"""The port's flash attention against the reference's Pallas kernel.
+
+On the CPU the port's wrapper runs its plain PyTorch version; the reference
+runs its Pallas kernel in interpret mode.  Inputs are made with numpy from
+a seed and handed to both.  Tolerances are the reference's own
+(tests/test_kernels.py): fp32 2e-6, bf16 2e-2, q_offset 1e-5.  The CUDA
+kernel itself is held against the plain version on the card (``cuda``
+marker; ``python3 chip_smoke.py`` does the same at the serving shape).
+The GPU machine has no JAX, so the reference is imported inside the tests
+that use it and the ``cuda`` tests run there with ``--noconftest -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import kernel, ops
+from repro_torch.kernels.flash_attention.ref import reference_attention
+
+SHAPES = [
+    (2, 64, 64, 4, 2, 32),     # GQA
+    (1, 128, 128, 8, 8, 64),   # MHA
+    (2, 96, 96, 4, 1, 16),     # MQA, non-pow2 seq
+    (1, 64, 64, 2, 2, 112),    # kimi-style head_dim (padded to 128)
+]
+DTYPES = {"float32": ("float32", torch.float32, 2e-6),
+          "bfloat16": ("bfloat16", torch.bfloat16, 2e-2)}
+
+
+def _jax():
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention.ops import flash_attention
+    return jnp, flash_attention
+
+
+def _mk_qkv(seed, B, Sq, Skv, H, K, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Sq, H, hd)).astype(np.float32),
+            rng.normal(size=(B, Skv, K, hd)).astype(np.float32),
+            rng.normal(size=(B, Skv, K, hd)).astype(np.float32))
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_matches_reference(shape, dtype):
+    jnp, jax_flash = _jax()
+    B, Sq, Skv, H, K, hd = shape
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _mk_qkv(42, B, Sq, Skv, H, K, hd)
+    ref = jax_flash(*(jnp.asarray(a, getattr(jnp, jdt)) for a in arrays),
+                    interpret=True)
+    out = ops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrays))
+    assert out.shape == (B, Sq, H, hd) and out.dtype == tdt
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=tol, atol=tol)
+
+
+def test_flash_attention_q_offset():
+    """Chunked-prefill masking: the query block starts at position 32."""
+    jnp, jax_flash = _jax()
+    B, S, H, K, hd = 1, 32, 2, 2, 16
+    arrays = _mk_qkv(7, B, S, 2 * S, H, K, hd)
+    off = np.full((B,), 32, np.int32)
+    ref = jax_flash(*(jnp.asarray(a) for a in arrays),
+                    q_offset=jnp.asarray(off), interpret=True)
+    out = ops.flash_attention(*(torch.from_numpy(a) for a in arrays),
+                              q_offset=torch.from_numpy(off))
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd,padded", [(16, 64), (64, 64), (112, 128),
+                                        (128, 128)])
+def test_head_dim_padding(hd, padded):
+    assert ops._padded_hd(hd) == padded
+
+
+def test_head_dim_above_kernel_raises():
+    with pytest.raises(ValueError, match="head dim"):
+        ops._padded_hd(256)
+
+
+def test_cuda_kernel_refuses_cpu_tensors():
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.flash_attention_fwd(q, q, q)
+    assert kernel.launch_count() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, H, K, hd, dtype, q_offset, tol)
+    (1, 1024, 1024, 36, 36, 64, torch.bfloat16, 0, 2e-2),   # minicpm prefill
+    (2, 200, 200, 8, 2, 128, torch.bfloat16, 0, 2e-2),      # GQA, ragged tile
+    (2, 96, 256, 4, 4, 64, torch.float32, 160, 1e-5),       # q_offset
+    (1, 333, 333, 4, 4, 112, torch.float32, 0, 2e-6),       # fp32, padded hd
+])
+def test_cuda_kernel_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, Sq, Skv, H, K, hd, dtype, off, tol = case
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+               for a in _mk_qkv(3, B, Sq, Skv, H, K, hd))
+    q_offset = torch.full((B,), off, dtype=torch.int32, device="cuda")
+    before = kernel.launch_count()
+    out = ops.flash_attention(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert kernel.launch_count() == before + 1
+    plain = reference_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), q_offset=q_offset
+                                ).transpose(1, 2)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)

@@ -1,0 +1,55 @@
+"""The port stands alone: no JAX, nothing of ``repro``, no silent CPU runs."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.models import default_env
+from repro_torch.models import transformer
+from repro_torch.configs import get_config
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_importing_the_launcher_loads_neither_jax_nor_repro():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.serve;"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_without_a_device_refuse_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_env()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init(get_config("minicpm-2b"), torch.Generator())
+    assert default_env("cpu").device.type == "cpu"
