@@ -6,21 +6,31 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles the flash-attention kernel from csrc/ with nvcc;
-3. kernel vs plain: the kernel's wrapper against the plain PyTorch version
-   on the card at the serving shape and at GQA, q_offset and fp32 (TF32
-   off) cases, with stated tolerances; then the kernel, the plain version
-   and PyTorch's SDPA (a yardstick only; the port never calls it) are timed
-   at the serving shape with CUDA events, beside the bound;
-4. plan: ``plan_serving`` for minicpm-2b on the H100 datasheet hardware;
-5. serve: 8 requests (prompt 1024, 32 new tokens, 4 slots) through
-   ``run_serving`` at full minicpm-2b (40 layers, d_model 2304, bf16,
-   weights drawn on the card from a seeded generator); the flash launch
-   count over that run must be 40 per prefill; then one warm prefill and
-   one batched decode step are traced with torch.profiler (device kernels,
-   their summed time and its share of the step's wall time);
-6. agreement: at a small size, prefill logits, KV cache and greedy tokens on
-   the card agree with the same model run on the CPU.
+2. build: compiles the flash-attention and SSD-scan kernels from their
+   csrc/ with nvcc, both at once, and prints ptxas's registers and spills;
+3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
+   on the card, with stated tolerances.  Flash: the minicpm serving shape
+   and GQA, q_offset and fp32 (TF32 off) cases.  SSD: the mamba2-370m and
+   zamba2-1.2b serving shapes in bf16, a padded and a short prompt, an
+   init_state case and two chained halves against one call, in fp32.
+   Then each kernel, its plain version and, for flash, PyTorch's SDPA (a
+   yardstick only; the port never calls it; no single PyTorch call
+   computes SSD) are timed at the serving shape with CUDA events in ABBA
+   order, beside the bound;
+4. plan: ``plan_serving`` for minicpm-2b, mamba2-370m and zamba2-1.2b on
+   the H100 datasheet hardware;
+5. serve: for each of the three models, 8 requests (prompt 1024, 32 new
+   tokens, 4 slots) through ``run_serving`` at full width and depth (bf16,
+   weights drawn on the card from a seeded generator), with both launch
+   counts set to 0 just before and read just after: minicpm-2b 40 flash
+   launches per prefill, mamba2-370m 48 SSD launches per prefill,
+   zamba2-1.2b 38 SSD and 6 flash launches per prefill.  One warm prefill
+   and one batched decode step of minicpm-2b and of mamba2-370m are traced
+   with torch.profiler (device kernels, their summed time and its share of
+   the step's wall time);
+6. agreement: for each family at a small size in fp32, prefill logits, the
+   caches and greedy tokens of 5 ragged requests on the card agree with the
+   same model run on the CPU.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
@@ -28,6 +38,8 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -43,9 +55,12 @@ HERE = pathlib.Path(__file__).resolve().parent
 PEAK_BF16 = 989e12
 HBM_BW = 3.35e12
 
-ARCH = "minicpm-2b"
+ARCHS = ("minicpm-2b", "mamba2-370m", "zamba2-1.2b")
 REQUESTS, PROMPT_LEN, NEW_TOKENS, MAX_BATCH, SEED = 8, 1024, 32, 4, 0
 TOLS = {torch.bfloat16: 2e-2, torch.float32: 2e-6}
+# SSD: the reference's tolerances (tests/test_kernels.py)
+SSD_Y_TOLS = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+SSD_STATE_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -66,10 +81,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_abba(fns: dict, order: tuple) -> dict:
+    """Mean ms of each function over two rounds, in ``order`` and then in
+    reverse."""
+    samples = {n: [] for n in fns}
+    for names in (order, tuple(reversed(order))):
+        for n in names:
+            samples[n].append(time_ms(fns[n]))
+    return {n: sum(s) / len(s) for n, s in samples.items()}
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BW
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def causal_pairs(Sq: int, Skv: int, q_offset: torch.Tensor) -> int:
     """(query, key) pairs a causal pass over these rows must score."""
     rows = torch.arange(Sq)[None, :] + q_offset.cpu()[:, None].long()
     return int(torch.clamp(rows + 1, max=Skv).sum())
+
+
+def ssd_work(Bt: int, S: int, H: int, P: int, N: int, chunk: int,
+             esize: int, with_init: bool):
+    """Least FLOPs and bytes of one SSD scan.  FLOPs: per chunk of L
+    positions, C.B^T over its causal L(L+1)/2 pairs once (B and C are shared
+    by the heads), then per head the masked scores times x over the same
+    pairs, the chunk's state summary (L x N x P) and, where the entering
+    state is not zero, its term in y (L x N x P).  Bytes: x, B, C, dt, A
+    (and init_state) read once, y and the final state written once."""
+    Q = min(chunk, S)
+    lengths = [min(Q, S - s0) for s0 in range(0, S, Q)]
+    flops = 0
+    for c, L in enumerate(lengths):
+        pairs = L * (L + 1) // 2
+        flops += 2 * Bt * N * pairs
+        flops += 2 * Bt * H * (P * pairs + L * N * P)
+        if c > 0 or with_init:
+            flops += 2 * Bt * H * L * N * P
+    nbytes = (2 * Bt * S * H * P * esize + 2 * Bt * S * N * esize
+              + Bt * S * H * 4 + H * 4 + Bt * H * P * N * 4
+              * (2 if with_init else 1))
+    return float(flops), float(nbytes)
 
 
 def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
@@ -94,8 +148,8 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not kernels:
-            print(f"profile [{name}]: the profiler saw no device kernels "
-                  "(busy share not measured)")
+            print(f"profile [{eng.api.cfg.name} {name}]: the profiler saw no "
+                  "device kernels (busy share not measured)")
             continue
         by_name: dict = {}
         for e in kernels:
@@ -104,7 +158,8 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
         busy_ms = sum(by_name.values()) / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(json.dumps({"profile": {
-            "step": name, "device_kernels": len(kernels),
+            "arch": eng.api.cfg.name, "step": name,
+            "device_kernels": len(kernels),
             "device_busy_ms": busy_ms, "wall_ms_p50": wall_ms[name],
             "busy_share": busy_ms / wall_ms[name],
             "top_ms": [[k[:100], v / 1e3] for k, v in top]}}), flush=True)
@@ -120,6 +175,9 @@ def main() -> int:
     from repro_torch.distributed.roofline import H100_SXM
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_reference
     from repro_torch.launch.serve import run_serving, scale_config
     from repro_torch.models import Env, get_model
     from repro_torch.serve import ServeEngine, plan_serving
@@ -140,14 +198,21 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
-    # 2. build ----------------------------------------------------------------
-    rec = kernel.build()
-    print(f"build: flash_fwd.cu in {rec['seconds']:.2f} s -> {rec['path']}")
-    for line in str(rec["ptxas"]).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    # 2. build: one nvcc per source, started together ---------------------------
+    sources = {"flash_fwd.cu": kernel, "ssd_fwd.cu": ssd_kernel}
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = {name: pool.submit(mod.build) for name, mod in sources.items()}
+        records = {name: f.result() for name, f in builds.items()}
+    for name, rec in records.items():
+        print(f"build: {name} in {rec['seconds']:.2f} s -> {rec['path']}")
+        for line in str(rec["ptxas"]).splitlines():
+            if "entry function" in line:
+                print(f"  ptxas: {line.split('entry function')[1].strip()}")
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
+    sys.stdout.flush()
 
-    # 3. kernel vs plain --------------------------------------------------------
+    # 3a. flash kernel vs plain ---------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def qkv(B, Sq, Skv, H, K, hd, dtype):
@@ -192,86 +257,173 @@ def main() -> int:
     q, k, v = (t.transpose(1, 2).contiguous()
                for t in qkv(B, S, S, H, H, hd, torch.bfloat16))
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)
-    fns = {
+    ms = time_abba({
         "kernel": lambda: kernel.flash_attention_fwd(q, k, v, q_offset=zero),
         "plain": lambda: reference_attention(q, k, v, q_offset=zero),
         "library": lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True),
-    }
-    samples = {n: [] for n in fns}
-    for order in (("plain", "kernel", "library"), ("library", "kernel", "plain")):
-        for n in order:
-            samples[n].append(time_ms(fns[n]))
-    ms = {n: sum(s) / len(s) for n, s in samples.items()}
+    }, ("plain", "kernel", "library"))
     flops = 4.0 * B * H * causal_pairs(S, S, zero) * hd
     nbytes = 4 * q.numel() * q.element_size()       # q, k, v read; o written
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BW
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = bound(flops, nbytes)
     print(f"flash timing at B={B} S={S} H=K={H} hd={hd} bf16 (mean of 2 "
           f"rounds of 20, ABBA): kernel_ms {ms['kernel']:.4f}  plain_ms "
           f"{ms['plain']:.4f}  library_ms (SDPA) {ms['library']:.4f}  "
           f"bound_ms {bound_ms:.5f} ({bound_by}; {flops:.4g} FLOP, "
           f"{nbytes} B)", flush=True)
+    del q, k, v
 
-    # 4. plan -------------------------------------------------------------------
-    cfg = get_config(ARCH)
-    sp = plan_serving(cfg, request_rate=4.0, prompt_len=PROMPT_LEN,
-                      gen_len=NEW_TOKENS, hardware=H100_SXM)
-    print(H100_SXM.describe())
-    print(sp.describe())
-    print(sp.schedule.describe(), flush=True)
+    # 3b. SSD kernel vs plain -------------------------------------------------------
+    def ssd_inputs(Bt, S, H, P, N, dtype, with_init=False):
+        x = torch.randn((Bt, S, H, P), generator=gen, device=dev).to(dtype)
+        dt = 0.01 + 0.19 * torch.rand((Bt, S, H), generator=gen, device=dev)
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+        Bm = torch.randn((Bt, S, N), generator=gen, device=dev).to(dtype)
+        Cm = torch.randn((Bt, S, N), generator=gen, device=dev).to(dtype)
+        init = (torch.randn((Bt, H, P, N), generator=gen, device=dev)
+                if with_init else None)
+        return (x, dt, A, Bm, Cm), init
 
-    # 5. serve at full width and depth ---------------------------------------------
-    kernel.reset_launch_count()
-    res = run_serving(cfg, device="cuda", requests=REQUESTS,
-                      prompt_len=PROMPT_LEN, max_new=NEW_TOKENS,
-                      max_batch=MAX_BATCH, seed=SEED)
-    launches = kernel.launch_count()
-    expected = cfg.num_layers * REQUESTS
-    done = res["done"]
-    print(json.dumps({"serving": {
-        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-        "requests": res["requests"], "prompt_len": PROMPT_LEN,
-        "new_tokens": NEW_TOKENS, "max_batch": MAX_BATCH, "dtype": "bf16",
-        "tokens": res["tokens"], "wall_s": res["wall_s"],
-        "tokens_per_s": res["tokens_per_s"],
-        "ttft_p50_ms": res["ttft_p50_ms"], "ttft_p99_ms": res["ttft_p99_ms"],
-        "e2e_p50_ms": res["e2e_p50_ms"],
-        "peak_mem_bytes": res["peak_mem_bytes"],
-        "prefills": res["prefills"],
-        "prefill_ms_first": res["prefill_ms_first"],
-        "prefill_ms_p50": res["prefill_ms_p50"],
-        "decode_steps": res["decode_steps"],
-        "decode_ms_first": res["decode_ms_first"],
-        "decode_ms_p50": res["decode_ms_p50"],
-        "flash_launches": launches, "expected_launches": expected}}),
-        flush=True)
-    if launches != expected:
-        fail(f"flash kernel launched {launches} times, expected {expected}")
-    if len(done) != REQUESTS or any(len(r.output) != NEW_TOKENS for r in done):
-        fail("not every request finished with its tokens")
-    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
-        fail("a generated token is outside the vocabulary")
-    eng = res["engine"]
-    prompt = torch.as_tensor(done[0].prompt[None, :], dtype=torch.long,
-                             device=dev)
-    profile_steps(eng, prompt, {
-        "tokens": prompt[:, :1].expand(MAX_BATCH, 1).contiguous(),
-        "pos": torch.full((MAX_BATCH,), PROMPT_LEN + NEW_TOKENS, device=dev)},
-        {"prefill": res["prefill_ms_p50"], "decode": res["decode_ms_p50"]})
-    logits, _ = eng.api.prefill(eng.env, eng.params, {"tokens": prompt})
-    if logits.shape != (1, 1, cfg.vocab_size) or \
-            not bool(torch.isfinite(logits).all()):
-        fail("full-size prefill logits are not finite of shape (1, 1, V)")
-    del eng, res, logits
+    def ssd_check(name, got, want, y_tol, state_tol, desc):
+        (y, fs), (y_ref, fs_ref) = got, want
+        dy = (y.float() - y_ref.float()).abs()
+        ds = (fs - fs_ref).abs()
+        ok = (bool(torch.isfinite(y.float()).all()) and y.shape == y_ref.shape
+              and y.dtype == y_ref.dtype and fs.shape == fs_ref.shape
+              and bool((dy <= y_tol + y_tol * y_ref.float().abs()).all())
+              and bool((ds <= state_tol + state_tol * fs_ref.abs()).all()))
+        print(f"ssd kernel vs plain [{name}] {desc}: y max_abs_err "
+              f"{float(dy.max()):.3g} (tol {y_tol:g} abs + rel), state "
+              f"max_abs_err {float(ds.max()):.3g} (tol {state_tol:g}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"SSD kernel disagrees with the plain version on {name}")
+        return float(dy.max())
+
+    ssd_cases = [
+        # name, Bt, S, H, P, N, chunk, dtype, init_state
+        ("mamba2", 1, PROMPT_LEN, 32, 64, 128, 256, torch.bfloat16, False),
+        ("zamba2", 1, PROMPT_LEN, 64, 64, 64, 256, torch.bfloat16, False),
+        ("padded", 2, 1000, 8, 64, 128, 256, torch.float32, False),
+        ("short", 2, 100, 8, 64, 128, 256, torch.float32, False),
+        ("init_state", 2, 300, 8, 64, 64, 128, torch.float32, True),
+    ]
+    ssd_errors = {}
+    for name, Bt, S, H, P, N, chunk, dtype, with_init in ssd_cases:
+        args, init = ssd_inputs(Bt, S, H, P, N, dtype, with_init)
+        got = ssd_ops.ssd_scan(*args, chunk=chunk, init_state=init)
+        torch.cuda.synchronize()
+        want = ssd_reference(*args, chunk=chunk, init_state=init)
+        ssd_errors[name] = ssd_check(
+            name, got, want, SSD_Y_TOLS[dtype], SSD_STATE_TOL,
+            f"Bt={Bt} S={S} H={H} P={P} N={N} chunk={chunk} "
+            f"{str(dtype)[6:]} init_state={with_init}")
+    args, _ = ssd_inputs(1, PROMPT_LEN, 8, 64, 128, torch.float32)
+    x, dt, A, Bm, Cm = args
+    h = PROMPT_LEN // 2
+    y1, s1 = ssd_ops.ssd_scan(x[:, :h], dt[:, :h], A, Bm[:, :h], Cm[:, :h],
+                              chunk=256)
+    y2, s2 = ssd_ops.ssd_scan(x[:, h:], dt[:, h:], A, Bm[:, h:], Cm[:, h:],
+                              chunk=256, init_state=s1)
+    full = ssd_ops.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    ssd_check("chained_halves", (torch.cat([y1, y2], dim=1), s2), full,
+              1e-4, 1e-4, f"two calls of S={h} chained by state vs one of "
+              f"S={PROMPT_LEN}, H=8 P=64 N=128 chunk=256 fp32")
+
+    # timing at the mamba2-370m serving shape
+    Bt, S, H, P, N, chunk = 1, PROMPT_LEN, 32, 64, 128, 256
+    (x, dt, A, Bm, Cm), _ = ssd_inputs(Bt, S, H, P, N, torch.bfloat16)
+    ssd_ms = time_abba({
+        "kernel": lambda: ssd_kernel.ssd_scan_fwd(x, dt, A, Bm, Cm,
+                                                  chunk=chunk),
+        "plain": lambda: ssd_reference(x, dt, A, Bm, Cm, chunk=chunk),
+    }, ("plain", "kernel"))
+    ssd_flops, ssd_bytes = ssd_work(Bt, S, H, P, N, chunk, 2, False)
+    ssd_bound_ms, ssd_bound_by = bound(ssd_flops, ssd_bytes)
+    print(f"ssd timing at Bt={Bt} S={S} H={H} P={P} N={N} chunk={chunk} bf16 "
+          f"(mean of 2 rounds of 20, ABBA): kernel_ms {ssd_ms['kernel']:.4f}  "
+          f"plain_ms {ssd_ms['plain']:.4f}  library_ms none (no single "
+          f"PyTorch call computes SSD)  bound_ms {ssd_bound_ms:.5f} "
+          f"({ssd_bound_by}; {ssd_flops:.4g} FLOP, {ssd_bytes:.0f} B)",
+          flush=True)
+    del x, dt, A, Bm, Cm, args, full, y1, y2, s1, s2
     torch.cuda.empty_cache()
 
-    # 6. agreement with the CPU at a small size ---------------------------------
-    small = scale_config(cfg, "10m")
-    api = get_model(small)
-    cpu_params = api.init(torch.Generator().manual_seed(SEED), device="cpu")
+    # 4. plan -------------------------------------------------------------------
+    print(H100_SXM.describe())
+    for arch in ARCHS:
+        sp = plan_serving(get_config(arch), request_rate=4.0,
+                          prompt_len=PROMPT_LEN, gen_len=NEW_TOKENS,
+                          hardware=H100_SXM)
+        print(f"[{arch}] {sp.describe()}")
+        print(sp.schedule.describe(), flush=True)
 
+    # 5. serve at full width and depth ---------------------------------------------
+    counters = {"flash": kernel, "ssd": ssd_kernel}
+    launches = {name: {} for name in counters}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        n_shared = cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
+        per_prefill = {
+            "flash": cfg.num_layers if cfg.family == "dense" else n_shared,
+            "ssd": cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0}
+        for mod in counters.values():
+            mod.reset_launch_count()
+        res = run_serving(cfg, device="cuda", requests=REQUESTS,
+                          prompt_len=PROMPT_LEN, max_new=NEW_TOKENS,
+                          max_batch=MAX_BATCH, seed=SEED)
+        counts = {name: mod.launch_count() for name, mod in counters.items()}
+        expected = {name: n * REQUESTS for name, n in per_prefill.items()}
+        for name, n in counts.items():
+            launches[name][arch] = n
+        done = res["done"]
+        print(json.dumps({"serving": {
+            "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model,
+            "requests": res["requests"], "prompt_len": PROMPT_LEN,
+            "new_tokens": NEW_TOKENS, "max_batch": MAX_BATCH, "dtype": "bf16",
+            "tokens": res["tokens"], "wall_s": res["wall_s"],
+            "tokens_per_s": res["tokens_per_s"],
+            "ttft_p50_ms": res["ttft_p50_ms"],
+            "ttft_p99_ms": res["ttft_p99_ms"],
+            "e2e_p50_ms": res["e2e_p50_ms"],
+            "peak_mem_bytes": res["peak_mem_bytes"],
+            "prefills": res["prefills"],
+            "prefill_ms_first": res["prefill_ms_first"],
+            "prefill_ms_p50": res["prefill_ms_p50"],
+            "decode_steps": res["decode_steps"],
+            "decode_ms_first": res["decode_ms_first"],
+            "decode_ms_p50": res["decode_ms_p50"],
+            "flash_launches": counts["flash"],
+            "ssd_launches": counts["ssd"],
+            "expected_launches": expected}}), flush=True)
+        if counts != expected:
+            fail(f"{arch}: kernel launches {counts}, expected {expected}")
+        if len(done) != REQUESTS or any(len(r.output) != NEW_TOKENS
+                                        for r in done):
+            fail(f"{arch}: not every request finished with its tokens")
+        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
+            fail(f"{arch}: a generated token is outside the vocabulary")
+        eng = res["engine"]
+        prompt = torch.as_tensor(done[0].prompt[None, :], dtype=torch.long,
+                                 device=dev)
+        if arch in ("minicpm-2b", "mamba2-370m"):
+            profile_steps(eng, prompt, {
+                "tokens": prompt[:, :1].expand(MAX_BATCH, 1).contiguous(),
+                "pos": torch.full((MAX_BATCH,), PROMPT_LEN + NEW_TOKENS,
+                                  device=dev)},
+                {"prefill": res["prefill_ms_p50"],
+                 "decode": res["decode_ms_p50"]})
+        logits, _ = eng.api.prefill(eng.env, eng.params, {"tokens": prompt})
+        if logits.shape != (1, 1, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"{arch}: full-size prefill logits are not finite of shape "
+                 "(1, 1, V)")
+        del eng, res, logits, done, prompt
+        torch.cuda.empty_cache()
+
+    # 6. agreement with the CPU at a small size ---------------------------------
     def to(tree, device):
         if isinstance(tree, dict):
             return {k: to(v, device) for k, v in tree.items()}
@@ -281,33 +433,50 @@ def main() -> int:
 
     envs = {"cpu": Env(torch.device("cpu"), torch.float32),
             "cuda": Env(dev, torch.float32)}
-    params = {"cpu": cpu_params, "cuda": to(cpu_params, dev)}
-    prompts = np.random.default_rng(SEED).integers(0, small.vocab_size, (5, 100))
-    got = {}
-    for name, env in envs.items():
-        toks = torch.as_tensor(prompts[:1], dtype=torch.long, device=env.device)
-        lg, cache = api.prefill(env, params[name], {"tokens": toks}, max_len=120)
-        engine = ServeEngine(api, env, params[name], max_batch=2, max_len=120)
-        for p, budget in zip(prompts, (6, 9, 4, 8, 5)):
-            engine.submit(p, max_new_tokens=budget)
-        outs = {r.rid: r.output for r in engine.run()}
-        got[name] = (lg.cpu(), cache["k"].cpu(), cache["v"].cpu(), outs)
-    logit_err = float((got["cpu"][0] - got["cuda"][0]).abs().max())
-    cache_err = max(float((got["cpu"][i] - got["cuda"][i]).abs().max())
-                    for i in (1, 2))
-    same_tokens = got["cpu"][3] == got["cuda"][3]
-    print(f"agreement at {small.name} fp32 (prompt 100): prefill logits "
-          f"max_abs_err {logit_err:.3g}, cache {cache_err:.3g} (tol 1e-4); "
-          f"greedy tokens of 5 requests equal: {same_tokens}", flush=True)
-    if logit_err > 1e-4 or cache_err > 1e-4 or not same_tokens:
-        fail("the port on the card disagrees with the same model on the CPU")
+    prompts = np.random.default_rng(SEED).integers(0, 8192, (5, 100))
+    for arch in ARCHS:
+        small = scale_config(get_config(arch), "10m")
+        if small.family == "ssm":      # several chunks, the last one ragged
+            small = dataclasses.replace(small, ssm_chunk=32)
+        api = get_model(small)
+        cpu_params = api.init(torch.Generator().manual_seed(SEED),
+                              device="cpu")
+        params = {"cpu": cpu_params, "cuda": to(cpu_params, dev)}
+        got = {}
+        for name, env in envs.items():
+            toks = torch.as_tensor(prompts[:1], dtype=torch.long,
+                                   device=env.device)
+            lg, cache = api.prefill(env, params[name], {"tokens": toks},
+                                    max_len=120)
+            engine = ServeEngine(api, env, params[name], max_batch=2,
+                                 max_len=120)
+            for p, budget in zip(prompts, (6, 9, 4, 8, 5)):
+                engine.submit(p, max_new_tokens=budget)
+            outs = {r.rid: r.output for r in engine.run()}
+            got[name] = (lg.cpu(), {k: t.cpu() for k, t in cache.items()},
+                         outs)
+        logit_err = float((got["cpu"][0] - got["cuda"][0]).abs().max())
+        cache_err = {k: float((t - got["cuda"][1][k]).abs().max())
+                     for k, t in got["cpu"][1].items()}
+        same_tokens = got["cpu"][2] == got["cuda"][2]
+        print(f"agreement at {small.name} fp32 (prompt 100"
+              + (f", ssm_chunk {small.ssm_chunk}" if small.ssm_state else "")
+              + f"): prefill logits max_abs_err {logit_err:.3g}, cache "
+              + ", ".join(f"{k} {e:.3g}" for k, e in sorted(cache_err.items()))
+              + f" (tol 1e-4); greedy tokens of 5 requests equal: "
+              f"{same_tokens}", flush=True)
+        if logit_err > 1e-4 or max(cache_err.values()) > 1e-4 or \
+                not same_tokens:
+            fail(f"{arch}: the port on the card disagrees with the same "
+                 "model on the CPU")
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
-        "launches": launches,
+        "launches": sum(launches["flash"].values()),
+        "launches_by_path": launches["flash"],
         "max_abs_err": errors["serving"],
         "ms": ms["kernel"],
         "kernel_ms": ms["kernel"],
@@ -315,6 +484,20 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": ms["library"],
+    }, {
+        "name": "ssd_scan_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_fwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:26",
+        "launches": sum(launches["ssd"].values()),
+        "launches_by_path": launches["ssd"],
+        "max_abs_err": ssd_errors["mamba2"],
+        "ms": ssd_ms["kernel"],
+        "kernel_ms": ssd_ms["kernel"],
+        "plain_ms": ssd_ms["plain"],
+        "bound_ms": ssd_bound_ms,
+        "bound_by": ssd_bound_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,11 +1,9 @@
-"""Builds, binds and launches the Hopper flash-attention forward kernel.
+"""Binds and launches the Hopper flash-attention forward kernel.
 
 ``csrc/flash_fwd.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C entry point at first use, under
-``build/repro_torch_kernels/`` in the repository, and loaded with
-``ctypes``.  The library name carries a hash of the source, so an edited
-source is rebuilt and a built one is reused.  Nothing is built or imported
-from CUDA when this module is imported.
+library with a plain C entry point at first use and loaded with ``ctypes``
+(:mod:`repro_torch.kernels.nvcc`).  Nothing is built or imported from CUDA
+when this module is imported.
 
 :func:`flash_attention_fwd` takes the kernel's layout, q (B, H, Sq, hd) and
 k/v (B, K, Skv, hd) with hd 64 or 128, and counts every launch.
@@ -14,40 +12,24 @@ k/v (B, K, Skv, hd) with hd 64 or 128, and counts every launch.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
 import threading
-import time
 from typing import Dict, Optional
 
 import torch
 
+from ..nvcc import build_library, check_operand
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
-#: the repository root (src/repro_torch/kernels/flash_attention/kernel.py)
-REPO_ROOT = pathlib.Path(__file__).resolve().parents[4]
-BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SUPPORTED_HD = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: names the built library: a changed source or flag set builds anew
-_FLAGS_KEY = "|".join(NVCC_FLAGS).encode()
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 _LOCK = threading.Lock()
 #: the loaded library and its build record, filled on first use
 _LIB: Dict[str, object] = {}
 _launches = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found on PATH: the flash-attention "
-                           "kernel is built from source with the CUDA toolkit")
-    return found
 
 
 def build() -> Dict[str, object]:
@@ -58,31 +40,8 @@ def build() -> Dict[str, object]:
     compiler's register/shared-memory report.
     """
     with _LOCK:
-        if "lib" in _LIB:
-            return _LIB
-        tag = hashlib.sha256(CSRC.read_bytes() + _FLAGS_KEY).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"flash_fwd-{tag}.so"
-        log = BUILD_DIR / f"flash_fwd-{tag}.ptxas.txt"
-        seconds = 0.0
-        if not so.exists():
-            tmp = BUILD_DIR / f".flash_fwd-{tag}-{os.getpid()}.so"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                   str(CSRC)], capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            log.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)   # atomic: concurrent builders agree
-        lib = ctypes.CDLL(str(so))
-        fn = lib.repro_flash_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        _LIB.update(lib=lib, fn=fn, path=str(so), seconds=seconds,
-                    ptxas=log.read_text() if log.exists() else "")
+        if "lib" not in _LIB:
+            _LIB.update(build_library(CSRC, "repro_flash_fwd", _ARGTYPES))
         return _LIB
 
 
@@ -96,18 +55,6 @@ def reset_launch_count() -> None:
     global _launches
     with _LOCK:
         _launches = 0
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
-           device: torch.device, align: int = 16) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -132,10 +79,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in SUPPORTED_HD:
         raise ValueError(f"head dim {hd} not in {SUPPORTED_HD}; pad it")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.dtype, q.device)
+        check_operand(name, t, q.dtype, q.device)
     if q_offset is None:
         q_offset = torch.zeros((B,), dtype=torch.int32, device=q.device)
-    _check("q_offset", q_offset, torch.int32, q.device, align=4)
+    check_operand("q_offset", q_offset, torch.int32, q.device, align=4)
     if q_offset.shape != (B,):
         raise ValueError(f"q_offset must be ({B},), got {tuple(q_offset.shape)}")
     sm_scale = sm_scale if sm_scale is not None else hd ** -0.5

@@ -4,6 +4,8 @@ engine serves batched requests.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm-2b \\
         --requests 12 --rate 4 --max-new 16            # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+        --device cpu                                   # or zamba2-1.2b
 
 Flags as the reference's ``python -m repro.launch.serve``, plus
 ``--device`` (default ``cuda``; there is no silent CPU fallback).
@@ -26,7 +28,10 @@ from ..serve import ServeEngine, plan_serving
 
 
 def scale_config(cfg: ModelConfig, scale: str) -> ModelConfig:
-    """Derive a runnable-size config of the same family."""
+    """Derive a runnable-size config of the same family.  A scaled hybrid
+    keeps its shared attention block: its period is cut to at most half the
+    scaled depth (the reference's presets leave zamba2's period of 6 over 4
+    or 8 layers, so at 10m the block never runs)."""
     if scale == "full":
         return cfg
     presets = {
@@ -40,6 +45,8 @@ def scale_config(cfg: ModelConfig, scale: str) -> ModelConfig:
         kw.pop("num_heads"), kw.pop("num_kv_heads"), kw.pop("head_dim")
         if cfg.family == "ssm":
             kw["d_ff"] = 0
+        if cfg.family == "hybrid":
+            kw["attn_period"] = min(cfg.attn_period, kw["num_layers"] // 2)
     if cfg.family == "moe":
         kw.update(num_experts=min(cfg.num_experts, 8),
                   experts_per_token=min(cfg.experts_per_token, 2),

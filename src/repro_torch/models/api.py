@@ -23,9 +23,9 @@ class ModelApi:
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    """The dense decoder's entry points bound to ``cfg``.  The training
-    ``forward`` and the other families' modules wait for their slices
-    (see ROADMAP.md)."""
+    """The decoder's entry points (dense, ssm and hybrid families) bound to
+    ``cfg``.  The training ``forward`` and the other families' modules wait
+    for their slices (see ROADMAP.md)."""
     mod = transformer
     return ModelApi(
         cfg=cfg,

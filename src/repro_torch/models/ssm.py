@@ -1,0 +1,133 @@
+"""Mamba2 (state-space duality / SSD) blocks.
+
+The chunked SSD algorithm (Dao & Gu 2024): within a chunk the recurrence is
+materialized as an attention-like masked product; across chunks a small
+recurrent state (H, hd, N) is carried.  A prompt's scan goes to
+:func:`repro_torch.kernels.ssd_scan.ops.ssd_scan` (the CUDA kernel on the
+card, its plain version on the CPU); this module holds the block plumbing
+(projections, depthwise causal conv, gating, the single-token decode
+update), in the reference's order of operations and casts.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd_scan.ops import ssd_scan
+from .common import Env, dense_init
+from .layers import _linear, rms_norm
+
+Params = Dict[str, Any]
+
+
+def ssm_dims(d_model: int, expand: int, head_dim: int, n_state: int,
+             conv_width: int) -> Dict[str, int]:
+    d_inner = expand * d_model
+    nheads = d_inner // head_dim
+    d_conv = d_inner + 2 * n_state          # x, B, C go through the conv
+    return dict(d_inner=d_inner, nheads=nheads, d_conv=d_conv,
+                conv_width=conv_width, n_state=n_state, head_dim=head_dim)
+
+
+def init_ssm(gen: torch.Generator, d_model: int, *, expand: int,
+             head_dim: int, n_state: int, conv_width: int,
+             device: torch.device, dtype: torch.dtype = torch.float32
+             ) -> Params:
+    """The reference's distributions; ``in_proj``/``out_proj`` in (out, in)
+    layout for ``F.linear``, ``conv_w`` (W, d_conv) as the reference."""
+    dims = ssm_dims(d_model, expand, head_dim, n_state, conv_width)
+    d_in, H = dims["d_inner"], dims["nheads"]
+    kw = dict(device=device, dtype=dtype)
+    in_proj = dense_init(gen, (2 * d_in + 2 * n_state + H, d_model), **kw)
+    out_proj = dense_init(gen, (d_model, d_in), **kw)
+    conv_w = dense_init(gen, (conv_width, dims["d_conv"]), in_axis=0, **kw)
+    u = torch.rand((H,), generator=gen, dtype=torch.float32, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros(dims["d_conv"], **kw),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H,
+                                          device=device)).to(dtype),
+        "D": torch.ones(H, **kw),
+        "dt_bias": torch.log(torch.expm1(dt)).to(dtype),
+        "norm": torch.zeros(d_in, **kw),
+        "out_proj": out_proj,
+    }
+
+
+def _depthwise_causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                           state: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal depthwise conv over (B, S, C) with kernel (W, C), written as
+    the reference's shifted sum over the W taps (not ``F.conv1d``: cuDNN
+    would run an fp32 convolution in TF32).
+
+    ``state``: (B, W-1, C) history for streaming; returns (y, new_state).
+    """
+    Bt, S, Cch = x.shape
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((Bt, W - 1, Cch), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)          # (B, S+W-1, C)
+    # sum_w x[s + w] * k[w]  (causal: window ending at s)
+    y = torch.zeros_like(x)
+    for i in range(W):
+        y = y + xp[:, i:i + S, :] * w[i].to(x.dtype)
+    y = y + b.to(x.dtype)
+    new_state = xp[:, S:, :] if W > 1 else state
+    return y, new_state
+
+
+def ssm_block(env: Env, p: Params, x: torch.Tensor, cfg, *,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One Mamba2 block (no outer norm/residual).
+
+    cache = (ssm_state (B,H,hd,N) fp32, conv_state (B,W-1,Cconv)) for
+    decoding; None for prefill (returns the fresh cache so prefill can
+    serve).  A single token against a cache takes the recurrent update;
+    anything longer goes through the SSD scan.
+    """
+    dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                    cfg.ssm_state, cfg.ssm_conv_width)
+    d_in, H, hd, N = (dims["d_inner"], dims["nheads"], dims["head_dim"],
+                      dims["n_state"])
+    Bt, S, _ = x.shape
+    proj = _linear(x, p["in_proj"])
+    z, xin, Bmat, Cmat, dt = torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
+    conv_in = torch.cat([xin, Bmat, Cmat], dim=-1)
+    conv_state = cache[1] if cache is not None else None
+    conv_out, new_conv_state = _depthwise_causal_conv(
+        conv_in, p["conv_w"], p["conv_b"], conv_state)
+    conv_out = F.silu(conv_out.float()).to(x.dtype)
+    xin, Bmat, Cmat = torch.split(conv_out, [d_in, N, N], dim=-1)
+    xh = xin.reshape(Bt, S, H, hd)
+    A = -torch.exp(p["A_log"].float())                          # (H,)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())          # (B,S,H)
+
+    if cache is None or S > 1:
+        init_state = cache[0] if cache is not None else None
+        y, final_state = ssd_scan(xh, dt, A, Bmat, Cmat, chunk=cfg.ssm_chunk,
+                                  init_state=init_state)
+    else:
+        # single-token decode: state' = exp(dt*A)*state + dt*B (x)
+        state = cache[0]                                        # (B,H,hd,N)
+        dt1 = dt[:, 0]                                          # (B,H)
+        dA = torch.exp(dt1 * A[None, :])                        # (B,H)
+        xB = torch.einsum("bhp,bn->bhpn", xh[:, 0].float(),
+                          Bmat[:, 0].float())
+        final_state = (dA[:, :, None, None] * state
+                       + dt1[:, :, None, None] * xB)
+        y = torch.einsum("bhpn,bn->bhp", final_state, Cmat[:, 0].float())
+        y = y[:, None].to(x.dtype)                              # (B,1,H,hd)
+    y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
+    y = y.reshape(Bt, S, d_in)
+    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    y = y * F.silu(z.float()).to(x.dtype)
+    out = _linear(y, p["out_proj"])
+    return out, (final_state, new_conv_state)

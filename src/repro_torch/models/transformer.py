@@ -1,4 +1,9 @@
-"""Decoder LM, dense family: pre-norm GQA attention + SwiGLU per layer.
+"""Decoder LM: the dense, ssm and hybrid families.
+
+* dense  : pre-norm GQA attention + SwiGLU per layer
+* ssm    : Mamba2 (SSD) block per layer (mamba2-370m)
+* hybrid : Mamba2 backbone + ONE weight-shared attention+SwiGLU block
+           applied after every ``attn_period``-th layer (zamba2)
 
 Entry points:
 
@@ -8,10 +13,12 @@ Entry points:
 * ``init_cache(cfg, batch, max_len, env, dtype)`` -> cache
 
 Params: ``embed`` (V, D), ``blocks`` — a list with one dict per layer
-(``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``, ``mlp.{wg,wu,wd}``, projections
-in (out, in) layout) — ``final_norm`` and, untied, ``head`` (V, D).  The
-layer stack is a Python loop.  The other families of the reference
-(moe, ssm, hybrid, vlm, audio) wait for their slices.
+(dense: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``, ``mlp.{wg,wu,wd}``; ssm
+and hybrid: ``ln1``, ``ssm.{in_proj,conv_w,conv_b,A_log,D,dt_bias,norm,
+out_proj}``), the hybrid's ``shared`` attention+MLP block, ``final_norm``
+and, untied, ``head`` (V, D); projections in (out, in) layout.  The layer
+stack is a Python loop.  The other families of the reference (moe, vlm,
+audio) wait for their slices.
 """
 
 from __future__ import annotations
@@ -23,22 +30,23 @@ import torch
 from ..configs.base import ModelConfig
 from .common import Env, dense_init, embed_init, resolve_device
 from .layers import attention_block, embed, lm_head, rms_norm, swiglu
+from .ssm import init_ssm, ssm_block, ssm_dims
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
+_FAMILIES = ("dense", "ssm", "hybrid")
+_SSM_FAMILIES = ("ssm", "hybrid")
 #: ROADMAP.md's item for each family this module does not carry yet
 _FAMILY_ITEM = {
-    "ssm": "ROADMAP.md Queue 1, 'The SSM path' (mamba2-370m)",
-    "hybrid": "ROADMAP.md Queue 1, 'The SSM path' (zamba2 hybrid)",
     "moe": "ROADMAP.md Queue 1, 'Other model families' (moe)",
     "vlm": "ROADMAP.md Queue 1, 'Other model families' (vlm)",
     "audio": "ROADMAP.md Queue 1, 'Other model families' (audio)",
 }
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in _FAMILIES:
         item = _FAMILY_ITEM.get(cfg.family, "ROADMAP.md Queue 1")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: {item}")
@@ -48,35 +56,49 @@ def _require_dense(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 
+def _init_attn_mlp(cfg: ModelConfig, gen: torch.Generator,
+                   kw: Dict[str, Any]) -> Params:
+    """A pre-norm attention + SwiGLU block: every dense layer, and the
+    hybrid's shared block."""
+    D, F_ = cfg.d_model, cfg.d_ff
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = {"wq": dense_init(gen, (H * hd, D), **kw),
+            "wk": dense_init(gen, (K * hd, D), **kw),
+            "wv": dense_init(gen, (K * hd, D), **kw),
+            "wo": dense_init(gen, (D, H * hd), **kw)}
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros(H * hd, **kw)
+        attn["bk"] = torch.zeros(K * hd, **kw)
+        attn["bv"] = torch.zeros(K * hd, **kw)
+    return {"ln1": torch.zeros(D, **kw),
+            "attn": attn,
+            "ln2": torch.zeros(D, **kw),
+            "mlp": {"wg": dense_init(gen, (F_, D), **kw),
+                    "wu": dense_init(gen, (F_, D), **kw),
+                    "wd": dense_init(gen, (D, F_), **kw)}}
+
+
 def init(cfg: ModelConfig, gen: torch.Generator, *,
          device: Optional[torch.device] = None,
          dtype: torch.dtype = torch.float32) -> Params:
     """Random weights from ``gen`` with the reference's distributions:
     truncated normal / sqrt(fan_in) for projections, normal x 0.02 for the
-    embedding, zeros for the (1 + scale) norm gains."""
-    _require_dense(cfg)
+    embedding, zeros for the (1 + scale) norm gains, the reference's
+    ``A_log``/``D``/``dt_bias`` for Mamba2 blocks."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    D, V = cfg.d_model, cfg.vocab_size
     kw = dict(device=dev, dtype=dtype)
     p: Params = {"embed": embed_init(gen, (V, D), **kw), "blocks": []}
     for _ in range(cfg.num_layers):
-        attn = {"wq": dense_init(gen, (H * hd, D), **kw),
-                "wk": dense_init(gen, (K * hd, D), **kw),
-                "wv": dense_init(gen, (K * hd, D), **kw),
-                "wo": dense_init(gen, (D, H * hd), **kw)}
-        if cfg.qkv_bias:
-            attn["bq"] = torch.zeros(H * hd, **kw)
-            attn["bk"] = torch.zeros(K * hd, **kw)
-            attn["bv"] = torch.zeros(K * hd, **kw)
-        p["blocks"].append({
-            "ln1": torch.zeros(D, **kw),
-            "attn": attn,
-            "ln2": torch.zeros(D, **kw),
-            "mlp": {"wg": dense_init(gen, (F_, D), **kw),
-                    "wu": dense_init(gen, (F_, D), **kw),
-                    "wd": dense_init(gen, (D, F_), **kw)},
-        })
+        if cfg.family in _SSM_FAMILIES:
+            p["blocks"].append({"ln1": torch.zeros(D, **kw), "ssm": init_ssm(
+                gen, D, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                n_state=cfg.ssm_state, conv_width=cfg.ssm_conv_width, **kw)})
+        else:
+            p["blocks"].append(_init_attn_mlp(cfg, gen, kw))
+    if cfg.family == "hybrid":
+        p["shared"] = _init_attn_mlp(cfg, gen, kw)
     p["final_norm"] = torch.zeros(D, **kw)
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, (V, D), **kw)
@@ -91,7 +113,9 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
                     positions: torch.Tensor, *,
                     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     kv_len: Optional[torch.Tensor] = None):
-    """Pre-norm attention + SwiGLU.  Returns (x, new_kv)."""
+    """Pre-norm attention + SwiGLU: a dense layer, or zamba2's
+    weight-shared block (the reference's ``_shared_block``).  Returns
+    (x, new_kv)."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     a, new_kv = attention_block(
         env, bp["attn"], h, num_heads=cfg.num_heads,
@@ -114,12 +138,36 @@ def _logits(env: Env, cfg: ModelConfig, params: Params,
 # KV cache
 # ---------------------------------------------------------------------------
 
+def _n_shared(cfg: ModelConfig) -> int:
+    return cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
                dtype: torch.dtype = torch.bfloat16) -> Cache:
-    _require_dense(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=env.device),
-            "v": torch.zeros(shape, dtype=dtype, device=env.device)}
+    """Dense: ``k``/``v`` (L, B, max_len, K, hd).  ssm/hybrid: ``state``
+    (L, B, H, hd, N), fp32 whatever ``dtype`` is, and ``conv``
+    (L, B, W-1, d_conv); the hybrid adds ``shared_k``/``shared_v``
+    (L // attn_period, B, max_len, K, hd)."""
+    _require_ported(cfg)
+    kw = dict(dtype=dtype, device=env.device)
+    L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    if cfg.family not in _SSM_FAMILIES:
+        return {"k": torch.zeros((L, batch, max_len, K, hd), **kw),
+                "v": torch.zeros((L, batch, max_len, K, hd), **kw)}
+    dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                    cfg.ssm_state, cfg.ssm_conv_width)
+    cache: Cache = {
+        "state": torch.zeros((L, batch, dims["nheads"], dims["head_dim"],
+                              dims["n_state"]), dtype=torch.float32,
+                             device=env.device),
+        "conv": torch.zeros((L, batch, cfg.ssm_conv_width - 1,
+                             dims["d_conv"]), **kw),
+    }
+    if cfg.family == "hybrid":
+        ns = _n_shared(cfg)
+        cache["shared_k"] = torch.zeros((ns, batch, max_len, K, hd), **kw)
+        cache["shared_v"] = torch.zeros((ns, batch, max_len, K, hd), **kw)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -130,19 +178,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
 def prefill(env: Env, cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor],
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
     x = embed(env, params["embed"], tokens)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     cache = init_cache(cfg, B, max_len, env, dtype=x.dtype)
-    for i, bp in enumerate(params["blocks"]):
-        x, (k, v) = _attn_ffn_block(env, cfg, bp, x, positions)
-        # the cache past the prompt stays zero, as the reference's padding
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+    if cfg.family in _SSM_FAMILIES:
+        x = _ssm_stack_prefill(env, cfg, params, x, positions, cache)
+    else:
+        for i, bp in enumerate(params["blocks"]):
+            x, (k, v) = _attn_ffn_block(env, cfg, bp, x, positions)
+            # the cache past the prompt stays zero, as the reference's padding
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
     return _logits(env, cfg, params, x[:, -1:]), cache
+
+
+def _shared_applies(cfg: ModelConfig, idx: int) -> bool:
+    """The hybrid's shared block runs after layer ``idx`` when
+    (idx + 1) % attn_period == 0, as its (idx + 1) // attn_period - 1-th
+    application."""
+    return cfg.family == "hybrid" and (idx + 1) % cfg.attn_period == 0
+
+
+def _ssm_stack_prefill(env: Env, cfg: ModelConfig, params: Params,
+                       x: torch.Tensor, positions: torch.Tensor,
+                       cache: Cache) -> torch.Tensor:
+    """Mamba2 layers (and the hybrid's shared block), filling ``cache``."""
+    S = x.shape[1]
+    for idx, bp in enumerate(params["blocks"]):
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        s, (st, conv) = ssm_block(env, bp["ssm"], h, cfg)
+        x = x + s
+        cache["state"][idx] = st
+        cache["conv"][idx] = conv
+        if _shared_applies(cfg, idx):
+            app = (idx + 1) // cfg.attn_period - 1
+            x, (k, v) = _attn_ffn_block(env, cfg, params["shared"], x,
+                                        positions)
+            cache["shared_k"][app, :, :S] = k
+            cache["shared_v"][app, :, :S] = v
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -156,13 +234,38 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
 
     Returns (logits (B,1,V), cache); the cache is updated in place.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     tokens, pos = batch["tokens"], batch["pos"]
     x = embed(env, params["embed"], tokens)
     positions = pos[:, None].long()
     kv_len = pos.long() + 1
-    for i, bp in enumerate(params["blocks"]):
-        x, _ = _attn_ffn_block(env, cfg, bp, x, positions,
-                               kv_cache=(cache["k"][i], cache["v"][i]),
-                               kv_len=kv_len)
+    if cfg.family in _SSM_FAMILIES:
+        x = _ssm_stack_decode(env, cfg, params, cache, x, positions, kv_len)
+    else:
+        for i, bp in enumerate(params["blocks"]):
+            x, _ = _attn_ffn_block(env, cfg, bp, x, positions,
+                                   kv_cache=(cache["k"][i], cache["v"][i]),
+                                   kv_len=kv_len)
     return _logits(env, cfg, params, x), cache
+
+
+def _ssm_stack_decode(env: Env, cfg: ModelConfig, params: Params,
+                      cache: Cache, x: torch.Tensor, positions: torch.Tensor,
+                      kv_len: torch.Tensor) -> torch.Tensor:
+    """One token through the Mamba2 layers (and the hybrid's shared
+    block); the state, conv and shared KV caches are updated in place."""
+    for idx, bp in enumerate(params["blocks"]):
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        s, (st, conv) = ssm_block(env, bp["ssm"], h, cfg,
+                                  cache=(cache["state"][idx],
+                                         cache["conv"][idx]))
+        x = x + s
+        cache["state"][idx] = st
+        cache["conv"][idx] = conv
+        if _shared_applies(cfg, idx):
+            app = (idx + 1) // cfg.attn_period - 1
+            x, _ = _attn_ffn_block(
+                env, cfg, params["shared"], x, positions,
+                kv_cache=(cache["shared_k"][app], cache["shared_v"][app]),
+                kv_len=kv_len)
+    return x

@@ -35,8 +35,9 @@ class Request:
 
 
 class ServeEngine:
-    """The KV cache is allocated once on ``env.device`` in the compute
-    dtype and updated in place by prefill inserts and decode steps.
+    """The cache is allocated once on ``env.device`` in the compute dtype
+    (an SSM's recurrent state stays fp32) and updated in place by prefill
+    inserts and decode steps.
 
     ``timings`` holds the host seconds of every prefill (cache insert and
     first token included) and every batched decode step; each ends in a
@@ -111,7 +112,8 @@ class ServeEngine:
             self.slot_last_token[slot] = next_tok
 
     def _insert_cache(self, slot: int, cache1: Dict[str, torch.Tensor]) -> None:
-        # an in-place slice copy into the device cache (the reference's
+        # an in-place slice copy of every entry (k/v; or state, conv and
+        # the hybrid's shared_k/v) into the device cache (the reference's
         # dynamic_update_slice builds a new array instead):
         # dst (L, B, ...), src (L, 1, ...)
         for name, dst in self.cache.items():

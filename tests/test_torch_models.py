@@ -56,8 +56,9 @@ def _close(a, b):
 
 
 def test_config_copy_matches_reference():
-    assert dataclasses.asdict(get_config("minicpm-2b")) == dataclasses.asdict(
-        jax_get_config("minicpm-2b"))
+    for arch in ("minicpm-2b", "mamba2-370m", "zamba2-1.2b"):
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            jax_get_config(arch))
 
 
 def test_prefill_logits_and_cache(pair):
@@ -111,7 +112,7 @@ def test_init_follows_reference_distributions():
     assert float(p["blocks"][1]["ln2"].abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
 def test_other_families_name_their_roadmap_item(family):
     cfg = ModelConfig(name=f"x-{family}", family=family, num_layers=1,
                       d_model=64, num_heads=4, num_kv_heads=4, d_ff=64,
