@@ -9,8 +9,9 @@ Phases, each of which exits non-zero on failure:
 2. build: compiles the flash-attention and SSD-scan kernels from their
    csrc/ with nvcc, both at once, and prints ptxas's registers and spills;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card, with stated tolerances.  Flash: the minicpm serving shape
-   and GQA, q_offset and fp32 (TF32 off) cases.  SSD: the mamba2-370m and
+   on the card, with stated tolerances.  Flash: the minicpm serving shape,
+   zamba2-1.2b's shared-block shape and GQA, q_offset and fp32 (TF32 off)
+   cases.  SSD: the mamba2-370m and
    zamba2-1.2b serving shapes in bf16, a padded and a short prompt, an
    init_state case and two chained halves against one call, in fp32.
    Then each kernel, its plain version and, for flash, PyTorch's SDPA (a
@@ -228,6 +229,8 @@ def main() -> int:
     cases = [
         # name, B, Sq, Skv, H, K, hd, dtype, q_offset
         ("serving", 1, PROMPT_LEN, PROMPT_LEN, 36, 36, 64, torch.bfloat16, 0),
+        ("zamba2_shared", 1, PROMPT_LEN, PROMPT_LEN, 32, 32, 64,
+         torch.bfloat16, 0),
         ("gqa", 2, 200, 200, 8, 2, 128, torch.bfloat16, 0),
         ("q_offset", 2, 96, 256, 4, 4, 64, torch.float32, 160),
         ("fp32_hd112", 1, 333, 333, 4, 4, 112, torch.float32, 0),
@@ -438,6 +441,9 @@ def main() -> int:
         small = scale_config(get_config(arch), "10m")
         if small.family == "ssm":      # several chunks, the last one ragged
             small = dataclasses.replace(small, ssm_chunk=32)
+        if small.family == "hybrid":   # the shared block runs at 4 layers
+            small = dataclasses.replace(
+                small, attn_period=small.num_layers // 2)
         api = get_model(small)
         cpu_params = api.init(torch.Generator().manual_seed(SEED),
                               device="cpu")
@@ -461,6 +467,8 @@ def main() -> int:
         same_tokens = got["cpu"][2] == got["cuda"][2]
         print(f"agreement at {small.name} fp32 (prompt 100"
               + (f", ssm_chunk {small.ssm_chunk}" if small.ssm_state else "")
+              + (f", attn_period {small.attn_period}" if small.attn_period
+                 else "")
               + f"): prefill logits max_abs_err {logit_err:.3g}, cache "
               + ", ".join(f"{k} {e:.3g}" for k, e in sorted(cache_err.items()))
               + f" (tol 1e-4); greedy tokens of 5 requests equal: "

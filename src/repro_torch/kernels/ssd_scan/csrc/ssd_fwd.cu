@@ -32,7 +32,7 @@
 // (C_i . B_j) exp(cum_i - cum_j) dt_j is built from cum for one (row tile,
 // column tile <= row tile) at a time, the mask applied before exp, and
 // tiles above the diagonal are skipped.  Tiles are staged through shared
-// memory as fp32; each of the 256 threads owns a 4 x 4 (or 4 x P/16) block
+// memory as fp32; each of the 256 threads owns a 4 x 4 block
 // of outputs, rows ty + 16k and columns tx + 16l, and reads float4s along
 // the reduction axis (rows padded so that 8 neighbouring rows fall in
 // distinct banks).  At the mamba2-370m serving shape (Bt=1, S=1024, Q=256,
@@ -66,6 +66,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;          // positions per tile
 constexpr int kLdT = kTile + 4;    // row stride of a tile kept with positions contiguous
 constexpr int kMaxP = 64;
+constexpr int kPL = kMaxP / 16;  // output columns per thread: tx + 16l, l < kPL
 constexpr int kMaxN = 256;
 constexpr int kMaxQ = 4096;
 
@@ -121,19 +122,18 @@ __device__ void chunk_cumsum(const float* __restrict__ dt, int H, float A, int L
 }
 
 // Pass 1.  grid (chunks, H, Bt).  Shared memory: cum[Q rounded to 4],
-// w[64], xT[16*PL][kLdT], wBT[64][kLdT].
-template <typename T, int PL>
+// w[64], xT[kMaxP][kLdT], wBT[64][kLdT].
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ A, const T* __restrict__ Bm,
                    float* __restrict__ cum, float* __restrict__ states, int S,
                    int H, int P, int N, int Q) {
-  constexpr int PR = 16 * PL;
   extern __shared__ float4 smem4[];
   float* s_cum = reinterpret_cast<float*>(smem4);
   float* s_w = s_cum + ((Q + 3) & ~3);
   float* s_xT = s_w + kTile;
-  float* s_wbT = s_xT + PR * kLdT;
+  float* s_wbT = s_xT + kMaxP * kLdT;
   __shared__ float s_warp[kWarps];
   __shared__ float s_carry;
 
@@ -159,9 +159,9 @@ chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   float* out = states + (((size_t)b * H + h) * nc + c) * P * N;
 
   for (int n0 = 0; n0 < N; n0 += kTile) {
-    float acc[PL][4];
+    float acc[kPL][4];
 #pragma unroll
-    for (int k = 0; k < PL; ++k)
+    for (int k = 0; k < kPL; ++k)
 #pragma unroll
       for (int l = 0; l < 4; ++l) acc[k][l] = 0.f;
 
@@ -172,9 +172,9 @@ chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int j = j0 + tid;
         s_w[tid] = tid < rj ? expf(cum_last - s_cum[j]) * dtb[(size_t)j * H] : 0.f;
       }
-      for (int i = tid; i < kTile * PR; i += kThreads) {
-        const int jj = i / PR;
-        const int p = i % PR;
+      for (int i = tid; i < kTile * kMaxP; i += kThreads) {
+        const int jj = i / kMaxP;
+        const int p = i % kMaxP;
         s_xT[p * kLdT + jj] = (jj < rj && p < P) ? to_f(xb[(size_t)(j0 + jj) * H * P + p]) : 0.f;
       }
       __syncthreads();  // s_w is ready
@@ -188,21 +188,21 @@ chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       __syncthreads();
 #pragma unroll 4
       for (int jj = 0; jj < kTile; jj += 4) {
-        float4 xv[PL], wv[4];
+        float4 xv[kPL], wv[4];
 #pragma unroll
-        for (int k = 0; k < PL; ++k)
+        for (int k = 0; k < kPL; ++k)
           xv[k] = *reinterpret_cast<const float4*>(s_xT + (ty + 16 * k) * kLdT + jj);
 #pragma unroll
         for (int l = 0; l < 4; ++l)
           wv[l] = *reinterpret_cast<const float4*>(s_wbT + (tx + 16 * l) * kLdT + jj);
 #pragma unroll
-        for (int k = 0; k < PL; ++k)
+        for (int k = 0; k < kPL; ++k)
 #pragma unroll
           for (int l = 0; l < 4; ++l) acc[k][l] = dot4(xv[k], wv[l], acc[k][l]);
       }
     }
 #pragma unroll
-    for (int k = 0; k < PL; ++k) {
+    for (int k = 0; k < kPL; ++k) {
       const int p = ty + 16 * k;
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
@@ -239,22 +239,21 @@ state_scan_kernel(float* __restrict__ states, const float* __restrict__ cum,
 
 // Pass 3.  grid (chunks, H, row tiles * Bt), the heaviest row tiles first.
 // Shared memory: C[64][LDC], B[64][LDC] (then the entering state
-// [16*PL][LDC]), xT[16*PL][kLdT], att[64][kLdT], cum_i[64], cum_j[64],
+// [kMaxP][LDC]), xT[kMaxP][kLdT], att[64][kLdT], cum_i[64], cum_j[64],
 // dt_j[64].
-template <typename T, int PL>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                  const T* __restrict__ Bm, const T* __restrict__ Cm,
                  const float* __restrict__ cum, const float* __restrict__ states,
                  T* __restrict__ y, int Bt, int S, int H, int P, int N, int Q) {
-  constexpr int PR = 16 * PL;
   const int LDC = row_stride(N);
   const int Npad = (N + 3) & ~3;
   extern __shared__ float4 smem4[];
   float* s_c = reinterpret_cast<float*>(smem4);
   float* s_b = s_c + kTile * LDC;
   float* s_xT = s_b + kTile * LDC;
-  float* s_att = s_xT + PR * kLdT;
+  float* s_att = s_xT + kMaxP * kLdT;
   float* s_cum_i = s_att + kTile * kLdT;
   float* s_cum_j = s_cum_i + kTile;
   float* s_dt_j = s_cum_j + kTile;
@@ -287,11 +286,11 @@ chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
   if (tid < kTile) s_cum_i[tid] = tid < ri ? cum_bh[i0 + tid] : 0.f;
 
-  float acc[4][PL];
+  float acc[4][kPL];
 #pragma unroll
   for (int k = 0; k < 4; ++k)
 #pragma unroll
-    for (int l = 0; l < PL; ++l) acc[k][l] = 0.f;
+    for (int l = 0; l < kPL; ++l) acc[k][l] = 0.f;
 
   for (int jt = 0; jt <= it; ++jt) {
     const int j0 = jt * kTile;
@@ -302,9 +301,9 @@ chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       const int n = i % Npad;
       s_b[r * LDC + n] = (r < rj && n < N) ? to_f(bb[(size_t)(j0 + r) * N + n]) : 0.f;
     }
-    for (int i = tid; i < kTile * PR; i += kThreads) {
-      const int jj = i / PR;
-      const int p = i % PR;
+    for (int i = tid; i < kTile * kMaxP; i += kThreads) {
+      const int jj = i / kMaxP;
+      const int p = i % kMaxP;
       s_xT[p * kLdT + jj] = (jj < rj && p < P) ? to_f(xb[(size_t)(j0 + jj) * H * P + p]) : 0.f;
     }
     if (tid < kTile) {
@@ -350,47 +349,47 @@ chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     // acc += att . x over the tile's columns
 #pragma unroll 4
     for (int jj = 0; jj < kTile; jj += 4) {
-      float4 av[4], xv[PL];
+      float4 av[4], xv[kPL];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         av[k] = *reinterpret_cast<const float4*>(s_att + (ty + 16 * k) * kLdT + jj);
 #pragma unroll
-      for (int l = 0; l < PL; ++l)
+      for (int l = 0; l < kPL; ++l)
         xv[l] = *reinterpret_cast<const float4*>(s_xT + (tx + 16 * l) * kLdT + jj);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int l = 0; l < PL; ++l) acc[k][l] = dot4(av[k], xv[l], acc[k][l]);
+        for (int l = 0; l < kPL; ++l) acc[k][l] = dot4(av[k], xv[l], acc[k][l]);
     }
   }
 
   // the entering state's term: exp(cum_i) * (C_i . state_in), state_in in s_b
   __syncthreads();
   const float* st = states + (((size_t)b * H + h) * nc + c) * P * N;
-  for (int i = tid; i < PR * Npad; i += kThreads) {
+  for (int i = tid; i < kMaxP * Npad; i += kThreads) {
     const int p = i / Npad;
     const int n = i % Npad;
     s_b[p * LDC + n] = (p < P && n < N) ? st[(size_t)p * N + n] : 0.f;
   }
   __syncthreads();
-  float inter[4][PL];
+  float inter[4][kPL];
 #pragma unroll
   for (int k = 0; k < 4; ++k)
 #pragma unroll
-    for (int l = 0; l < PL; ++l) inter[k][l] = 0.f;
+    for (int l = 0; l < kPL; ++l) inter[k][l] = 0.f;
 #pragma unroll 2
   for (int n = 0; n < Npad; n += 4) {
-    float4 cv[4], sv[PL];
+    float4 cv[4], sv[kPL];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       cv[k] = *reinterpret_cast<const float4*>(s_c + (ty + 16 * k) * LDC + n);
 #pragma unroll
-    for (int l = 0; l < PL; ++l)
+    for (int l = 0; l < kPL; ++l)
       sv[l] = *reinterpret_cast<const float4*>(s_b + (tx + 16 * l) * LDC + n);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int l = 0; l < PL; ++l) inter[k][l] = dot4(cv[k], sv[l], inter[k][l]);
+      for (int l = 0; l < kPL; ++l) inter[k][l] = dot4(cv[k], sv[l], inter[k][l]);
   }
 
   T* yb = y + ((size_t)b * S + s0 + i0) * H * P + (size_t)h * P;
@@ -400,28 +399,27 @@ chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     if (r >= ri) continue;
     const float e = expf(s_cum_i[r]);
 #pragma unroll
-    for (int l = 0; l < PL; ++l) {
+    for (int l = 0; l < kPL; ++l) {
       const int p = tx + 16 * l;
       if (p < P) store_as(yb + (size_t)r * H * P + p, __fadd_rn(acc[k][l], __fmul_rn(inter[k][l], e)));
     }
   }
 }
 
-template <typename T, int PL>
+template <typename T>
 cudaError_t launch(const void* x, const float* dt, const float* A, const void* Bm,
                    const void* Cm, const float* init_state, void* y, float* final_state,
                    float* cum, float* states, int Bt, int S, int H, int P, int N, int Q,
                    cudaStream_t stream) {
-  constexpr int PR = 16 * PL;
   const int nc = (S + Q - 1) / Q;
   const int n_it = (Q + kTile - 1) / kTile;
   const int LDC = row_stride(N);
 
-  const size_t smem1 = sizeof(float) * (size_t)(((Q + 3) & ~3) + kTile + PR * kLdT + kTile * kLdT);
-  cudaError_t err = cudaFuncSetAttribute(chunk_state_kernel<T, PL>,
+  const size_t smem1 = sizeof(float) * (size_t)(((Q + 3) & ~3) + kTile + kMaxP * kLdT + kTile * kLdT);
+  cudaError_t err = cudaFuncSetAttribute(chunk_state_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
-  chunk_state_kernel<T, PL><<<dim3(nc, H, Bt), kThreads, smem1, stream>>>(
+  chunk_state_kernel<T><<<dim3(nc, H, Bt), kThreads, smem1, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), cum, states, S, H, P, N, Q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -432,29 +430,14 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
   if (err != cudaSuccess) return err;
 
   const size_t smem3 =
-      sizeof(float) * (size_t)(2 * kTile * LDC + PR * kLdT + kTile * kLdT + 3 * kTile);
-  err = cudaFuncSetAttribute(chunk_out_kernel<T, PL>,
+      sizeof(float) * (size_t)(2 * kTile * LDC + kMaxP * kLdT + kTile * kLdT + 3 * kTile);
+  err = cudaFuncSetAttribute(chunk_out_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
   if (err != cudaSuccess) return err;
-  chunk_out_kernel<T, PL><<<dim3(nc, H, n_it * Bt), kThreads, smem3, stream>>>(
+  chunk_out_kernel<T><<<dim3(nc, H, n_it * Bt), kThreads, smem3, stream>>>(
       static_cast<const T*>(x), dt, static_cast<const T*>(Bm), static_cast<const T*>(Cm), cum,
       states, static_cast<T*>(y), Bt, S, H, P, N, Q);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_p(const void* x, const float* dt, const float* A, const void* Bm,
-                       const void* Cm, const float* init_state, void* y, float* final_state,
-                       float* cum, float* states, int Bt, int S, int H, int P, int N, int Q,
-                       cudaStream_t st) {
-  if (P <= 16)
-    return launch<T, 1>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, states, Bt, S, H, P,
-                        N, Q, st);
-  if (P <= 32)
-    return launch<T, 2>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, states, Bt, S, H, P,
-                        N, Q, st);
-  return launch<T, 4>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, states, Bt, S, H, P, N,
-                      Q, st);
 }
 
 }  // namespace
@@ -485,10 +468,10 @@ extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A, const
   float* sts = static_cast<float*>(states);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_p<float>(x, dtf, Af, Bm, Cm, init, y, fs, cumf, sts, Bt, S, H, P, N, Q,
+    return (int)launch<float>(x, dtf, Af, Bm, Cm, init, y, fs, cumf, sts, Bt, S, H, P, N, Q,
                                   st);
   if (dtype == 1)
-    return (int)dispatch_p<__nv_bfloat16>(x, dtf, Af, Bm, Cm, init, y, fs, cumf, sts, Bt, S, H,
+    return (int)launch<__nv_bfloat16>(x, dtf, Af, Bm, Cm, init, y, fs, cumf, sts, Bt, S, H,
                                           P, N, Q, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -28,10 +28,7 @@ from ..serve import ServeEngine, plan_serving
 
 
 def scale_config(cfg: ModelConfig, scale: str) -> ModelConfig:
-    """Derive a runnable-size config of the same family.  A scaled hybrid
-    keeps its shared attention block: its period is cut to at most half the
-    scaled depth (the reference's presets leave zamba2's period of 6 over 4
-    or 8 layers, so at 10m the block never runs)."""
+    """Derive a runnable-size config of the same family."""
     if scale == "full":
         return cfg
     presets = {
@@ -45,8 +42,6 @@ def scale_config(cfg: ModelConfig, scale: str) -> ModelConfig:
         kw.pop("num_heads"), kw.pop("num_kv_heads"), kw.pop("head_dim")
         if cfg.family == "ssm":
             kw["d_ff"] = 0
-        if cfg.family == "hybrid":
-            kw["attn_period"] = min(cfg.attn_period, kw["num_layers"] // 2)
     if cfg.family == "moe":
         kw.update(num_experts=min(cfg.num_experts, 8),
                   experts_per_token=min(cfg.experts_per_token, 2),
