@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1-3, then stop
 
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles the flash-attention and SSD-scan kernels from their
-   csrc/ with nvcc, both at once, and prints ptxas's registers and spills;
+   csrc/ with nvcc, both at once; prints each kernel function's registers
+   and spills from ptxas and its count of HMMA (tensor-core) instructions
+   from ``cuobjdump -sass`` of the built library;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
-   on the card, with stated tolerances.  Flash: the minicpm serving shape,
-   zamba2-1.2b's shared-block shape and GQA, q_offset and fp32 (TF32 off)
-   cases.  SSD: the mamba2-370m and
-   zamba2-1.2b serving shapes in bf16, a padded and a short prompt, an
-   init_state case and two chained halves against one call, in fp32.
-   Then each kernel, its plain version and, for flash, PyTorch's SDPA (a
-   yardstick only; the port never calls it; no single PyTorch call
-   computes SSD) are timed at the serving shape with CUDA events in ABBA
-   order, beside the bound;
+   on the card, with stated tolerances.  bf16 runs the tensor-core kernels,
+   fp32 the scalar ones.  Flash: the minicpm serving shape, zamba2-1.2b's
+   shared-block shape, GQA, a ragged Sq = Skv = 33 and q_offset in bf16,
+   q_offset and a padded hd in fp32 (TF32 off).  SSD: the mamba2-370m and
+   zamba2-1.2b serving shapes, a padded (S=1000) and a short (S=100)
+   prompt, an init_state case and two chained halves against one call, in
+   bf16 and in fp32, and a narrow bf16 case (P=32, N=48, 6 heads).  Then each kernel, its plain version and, for flash,
+   PyTorch's SDPA (a yardstick only; the port never calls it; no single
+   PyTorch call computes SSD) are timed at the serving shape: device time
+   from torch.profiler (the summed time of the device kernels 20 calls
+   launch, per call) and, beside it, CUDA events around 20 calls in ABBA
+   order (which include the host's gaps between launches);
 4. plan: ``plan_serving`` for minicpm-2b, mamba2-370m and zamba2-1.2b on
    the H100 datasheet hardware;
 5. serve: for each of the three models, 8 requests (prompt 1024, 32 new
@@ -28,7 +34,8 @@ Phases, each of which exits non-zero on failure:
    zamba2-1.2b 38 SSD and 6 flash launches per prefill.  One warm prefill
    and one batched decode step of minicpm-2b and of mamba2-370m are traced
    with torch.profiler (device kernels, their summed time and its share of
-   the step's wall time);
+   the step's wall time, the port's kernels by name), and one warm
+   zamba2-1.2b prefill, which runs both kernels;
 6. agreement: for each family at a small size in fp32, prefill logits, the
    caches and greedy tokens of 5 ragged requests on the card agree with the
    same model run on the CPU.
@@ -39,10 +46,13 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import dataclasses
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 
@@ -62,6 +72,13 @@ TOLS = {torch.bfloat16: 2e-2, torch.float32: 2e-6}
 # SSD: the reference's tolerances (tests/test_kernels.py)
 SSD_Y_TOLS = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 SSD_STATE_TOL = 1e-3
+# The first, scalar-FMA design's bf16 time at the same serving shapes (CUDA
+# events, chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+EARLIER_MS = {"flash": 0.27985199689865115, "ssd": 0.17942960262298585}
+# the port's kernel functions, as they appear in compiler and profiler output
+KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_kernel",
+                "chunk_state_tc_kernel", "chunk_state_kernel", "state_scan_kernel",
+                "chunk_out_tc_kernel", "chunk_out_kernel")
 
 
 def fail(msg: str) -> None:
@@ -80,6 +97,89 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_label(symbol: str) -> str:
+    """A readable name for a (mangled) kernel symbol: the port's kernel
+    name with its leading template argument, else the symbol cut short."""
+    for name in KERNEL_NAMES:
+        at = symbol.find(name)
+        if at >= 0:
+            rest = symbol[at + len(name):]
+            mangled = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", rest)
+            if mangled:
+                args = ["float" if t == "f" else "bf16" if t[0] == "1" else t[2:-1]
+                        for t in re.findall(r"f|13__nv_bfloat16|Li\d+E",
+                                            mangled.group(1))]
+                return f"{name}<{','.join(args)}>"
+            demangled = re.match(r"<([^>(]*)>", rest)
+            if demangled:
+                return f"{name}<{demangled.group(1).replace(' ', '')}>"
+            return name
+    return symbol[:100]
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel label: (registers, spill store bytes, spill load bytes)}
+    from ``nvcc -Xptxas -v`` output."""
+    report, current, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            current = kernel_label(line.split("Function properties for")[1].strip())
+        elif current and "spill stores" in line:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spills = (int(found.group(1)), int(found.group(2))) if found else (-1, -1)
+        elif current and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            report[current] = (int(regs.group(1)) if regs else -1, *spills)
+            current = None
+    return report
+
+
+def sass_hmma_counts(library: str):
+    """{kernel label: HMMA instructions} from ``cuobjdump -sass``, or None
+    when the toolkit has no cuobjdump."""
+    nvcc = shutil.which("nvcc")
+    tool = shutil.which("cuobjdump") or (
+        str(pathlib.Path(nvcc).parent / "cuobjdump") if nvcc else None)
+    if not tool or not pathlib.Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            current = kernel_label(line.split("Function :")[1].strip())
+            counts[current] = 0
+        elif current and "HMMA" in line:
+            counts[current] += 1
+    return counts
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """Device time per call: the summed duration of the device kernels that
+    ``iters`` calls launch, from torch.profiler, over ``iters``; and that
+    time split by kernel label."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = kernel_label(e.name)
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / iters)
+    if not by_kernel:
+        fail("the profiler saw no device kernels: device time not measured")
+    return sum(by_kernel.values()), by_kernel
 
 
 def time_abba(fns: dict, order: tuple) -> dict:
@@ -128,11 +228,12 @@ def ssd_work(Bt: int, S: int, H: int, P: int, N: int, chunk: int,
 
 
 def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
-                  wall_ms: dict) -> None:
-    """Trace one prefill and one batched decode step of the warm engine with
-    torch.profiler: device kernels launched, their summed time, that time as
-    a share of the step's unprofiled wall time (the engine's median), and
-    the kernels that take the most of it."""
+                  wall_ms: dict, which: tuple = ("prefill", "decode")) -> None:
+    """Trace the warm engine's steps in ``which`` (one prefill, one batched
+    decode step) with torch.profiler: device kernels launched, their summed
+    time, that time as a share of the step's unprofiled wall time (the
+    engine's median), the kernels that take the most of it, and the time of
+    each of the port's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -142,10 +243,10 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
         "decode": lambda: eng.api.decode_step(eng.env, eng.params, eng.cache,
                                               decode_batch),
     }
-    for name, step in steps.items():
+    for name in which:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            step()
+            steps[name]()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not kernels:
@@ -156,6 +257,11 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
         for e in kernels:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
+        ours: dict = {}
+        for k, us in by_name.items():
+            label = kernel_label(k)
+            if label.split("<")[0] in KERNEL_NAMES:
+                ours[label] = ours.get(label, 0.0) + us / 1e3
         busy_ms = sum(by_name.values()) / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(json.dumps({"profile": {
@@ -163,10 +269,16 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
             "device_kernels": len(kernels),
             "device_busy_ms": busy_ms, "wall_ms_p50": wall_ms[name],
             "busy_share": busy_ms / wall_ms[name],
+            "port_kernels_ms": ours,
             "top_ms": [[k[:100], v / 1e3] for k, v in top]}}), flush=True)
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 3 (build, kernel vs plain, "
+                             "timing)")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -204,13 +316,20 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = {name: pool.submit(mod.build) for name, mod in sources.items()}
         records = {name: f.result() for name, f in builds.items()}
+    hmma = {}
     for name, rec in records.items():
         print(f"build: {name} in {rec['seconds']:.2f} s -> {rec['path']}")
-        for line in str(rec["ptxas"]).splitlines():
-            if "entry function" in line:
-                print(f"  ptxas: {line.split('entry function')[1].strip()}")
-            elif "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        for fn, (regs, st, ld) in sorted(ptxas_report(str(rec["ptxas"])).items()):
+            print(f"  ptxas: {fn}: {regs} registers, {st} bytes spill stores, "
+                  f"{ld} bytes spill loads")
+        counts = sass_hmma_counts(rec["path"])
+        if counts is None:
+            print("  sass: cuobjdump is missing; HMMA not counted")
+            continue
+        for fn, n in sorted(counts.items()):
+            print(f"  sass: {fn}: {n} HMMA")
+        hmma.update({fn: n for fn, n in counts.items() if "_tc_" in fn
+                     or "bf16" in fn})
     sys.stdout.flush()
 
     # 3a. flash kernel vs plain ---------------------------------------------------
@@ -232,6 +351,8 @@ def main() -> int:
         ("zamba2_shared", 1, PROMPT_LEN, PROMPT_LEN, 32, 32, 64,
          torch.bfloat16, 0),
         ("gqa", 2, 200, 200, 8, 2, 128, torch.bfloat16, 0),
+        ("bf16_ragged", 1, 33, 33, 4, 4, 64, torch.bfloat16, 0),
+        ("bf16_q_offset", 2, 96, 256, 4, 4, 64, torch.bfloat16, 160),
         ("q_offset", 2, 96, 256, 4, 4, 64, torch.float32, 160),
         ("fp32_hd112", 1, 333, 333, 4, 4, 112, torch.float32, 0),
     ]
@@ -242,7 +363,7 @@ def main() -> int:
         out = ops.flash_attention(q, k, v, q_offset=q_offset)
         torch.cuda.synchronize()
         ref = plain(q, k, v, q_offset)
-        tol = 1e-5 if off else TOLS[dtype]
+        tol = 1e-5 if off and dtype == torch.float32 else TOLS[dtype]
         diff = (out.float() - ref.float()).abs()
         err = float(diff.max())
         ok = bool(torch.isfinite(out).all()) and out.shape == ref.shape and \
@@ -260,21 +381,25 @@ def main() -> int:
     q, k, v = (t.transpose(1, 2).contiguous()
                for t in qkv(B, S, S, H, H, hd, torch.bfloat16))
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)
-    ms = time_abba({
+    fns = {
         "kernel": lambda: kernel.flash_attention_fwd(q, k, v, q_offset=zero),
         "plain": lambda: reference_attention(q, k, v, q_offset=zero),
         "library": lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=True),
-    }, ("plain", "kernel", "library"))
+    }
+    ev = time_abba(fns, ("plain", "kernel", "library"))
+    ms = {n: device_ms(fn)[0] for n, fn in fns.items()}
     flops = 4.0 * B * H * causal_pairs(S, S, zero) * hd
     nbytes = 4 * q.numel() * q.element_size()       # q, k, v read; o written
     bound_ms, bound_by = bound(flops, nbytes)
-    print(f"flash timing at B={B} S={S} H=K={H} hd={hd} bf16 (mean of 2 "
-          f"rounds of 20, ABBA): kernel_ms {ms['kernel']:.4f}  plain_ms "
-          f"{ms['plain']:.4f}  library_ms (SDPA) {ms['library']:.4f}  "
-          f"bound_ms {bound_ms:.5f} ({bound_by}; {flops:.4g} FLOP, "
-          f"{nbytes} B)", flush=True)
-    del q, k, v
+    print(f"flash timing at B={B} S={S} H=K={H} hd={hd} bf16, device ms per "
+          f"call (profiler, 20 calls): kernel {ms['kernel']:.6f}  plain "
+          f"{ms['plain']:.6f}  library (SDPA) {ms['library']:.6f}; event ms "
+          f"(mean of 2 rounds of 20, ABBA): kernel {ev['kernel']:.6f}  plain "
+          f"{ev['plain']:.6f}  library {ev['library']:.6f}; bound_ms "
+          f"{bound_ms:.6f} ({bound_by}; {flops:.4g} FLOP, {nbytes} B); "
+          f"earlier (scalar) {EARLIER_MS['flash']:.4f}", flush=True)
+    del q, k, v, fns
 
     # 3b. SSD kernel vs plain -------------------------------------------------------
     def ssd_inputs(Bt, S, H, P, N, dtype, with_init=False):
@@ -307,6 +432,10 @@ def main() -> int:
         # name, Bt, S, H, P, N, chunk, dtype, init_state
         ("mamba2", 1, PROMPT_LEN, 32, 64, 128, 256, torch.bfloat16, False),
         ("zamba2", 1, PROMPT_LEN, 64, 64, 64, 256, torch.bfloat16, False),
+        ("padded_bf16", 2, 1000, 8, 64, 128, 256, torch.bfloat16, False),
+        ("short_bf16", 2, 100, 8, 64, 128, 256, torch.bfloat16, False),
+        ("init_state_bf16", 2, 300, 8, 64, 64, 128, torch.bfloat16, True),
+        ("narrow_bf16", 2, 200, 6, 32, 48, 64, torch.bfloat16, True),
         ("padded", 2, 1000, 8, 64, 128, 256, torch.float32, False),
         ("short", 2, 100, 8, 64, 128, 256, torch.float32, False),
         ("init_state", 2, 300, 8, 64, 64, 128, torch.float32, True),
@@ -321,37 +450,51 @@ def main() -> int:
             name, got, want, SSD_Y_TOLS[dtype], SSD_STATE_TOL,
             f"Bt={Bt} S={S} H={H} P={P} N={N} chunk={chunk} "
             f"{str(dtype)[6:]} init_state={with_init}")
-    args, _ = ssd_inputs(1, PROMPT_LEN, 8, 64, 128, torch.float32)
-    x, dt, A, Bm, Cm = args
-    h = PROMPT_LEN // 2
-    y1, s1 = ssd_ops.ssd_scan(x[:, :h], dt[:, :h], A, Bm[:, :h], Cm[:, :h],
-                              chunk=256)
-    y2, s2 = ssd_ops.ssd_scan(x[:, h:], dt[:, h:], A, Bm[:, h:], Cm[:, h:],
-                              chunk=256, init_state=s1)
-    full = ssd_ops.ssd_scan(*args, chunk=256)
-    torch.cuda.synchronize()
-    ssd_check("chained_halves", (torch.cat([y1, y2], dim=1), s2), full,
-              1e-4, 1e-4, f"two calls of S={h} chained by state vs one of "
-              f"S={PROMPT_LEN}, H=8 P=64 N=128 chunk=256 fp32")
+    # two calls chained by state against one call: exact in fp32 up to the
+    # order of sums; bf16 at the bf16 tolerances
+    for dtype, y_tol, state_tol in ((torch.bfloat16, 5e-2, SSD_STATE_TOL),
+                                    (torch.float32, 1e-4, 1e-4)):
+        args, _ = ssd_inputs(1, PROMPT_LEN, 8, 64, 128, dtype)
+        x, dt, A, Bm, Cm = args
+        h = PROMPT_LEN // 2
+        y1, s1 = ssd_ops.ssd_scan(x[:, :h], dt[:, :h], A, Bm[:, :h],
+                                  Cm[:, :h], chunk=256)
+        y2, s2 = ssd_ops.ssd_scan(x[:, h:], dt[:, h:], A, Bm[:, h:],
+                                  Cm[:, h:], chunk=256, init_state=s1)
+        full = ssd_ops.ssd_scan(*args, chunk=256)
+        torch.cuda.synchronize()
+        ssd_check(f"chained_halves_{str(dtype)[6:]}",
+                  (torch.cat([y1, y2], dim=1), s2), full, y_tol, state_tol,
+                  f"two calls of S={h} chained by state vs one of "
+                  f"S={PROMPT_LEN}, H=8 P=64 N=128 chunk=256 {str(dtype)[6:]}")
 
     # timing at the mamba2-370m serving shape
     Bt, S, H, P, N, chunk = 1, PROMPT_LEN, 32, 64, 128, 256
     (x, dt, A, Bm, Cm), _ = ssd_inputs(Bt, S, H, P, N, torch.bfloat16)
-    ssd_ms = time_abba({
+    fns = {
         "kernel": lambda: ssd_kernel.ssd_scan_fwd(x, dt, A, Bm, Cm,
                                                   chunk=chunk),
         "plain": lambda: ssd_reference(x, dt, A, Bm, Cm, chunk=chunk),
-    }, ("plain", "kernel"))
+    }
+    ssd_ev = time_abba(fns, ("plain", "kernel"))
+    ssd_ms, ssd_passes = device_ms(fns["kernel"])
+    ssd_plain_ms = device_ms(fns["plain"])[0]
     ssd_flops, ssd_bytes = ssd_work(Bt, S, H, P, N, chunk, 2, False)
     ssd_bound_ms, ssd_bound_by = bound(ssd_flops, ssd_bytes)
-    print(f"ssd timing at Bt={Bt} S={S} H={H} P={P} N={N} chunk={chunk} bf16 "
-          f"(mean of 2 rounds of 20, ABBA): kernel_ms {ssd_ms['kernel']:.4f}  "
-          f"plain_ms {ssd_ms['plain']:.4f}  library_ms none (no single "
-          f"PyTorch call computes SSD)  bound_ms {ssd_bound_ms:.5f} "
-          f"({ssd_bound_by}; {ssd_flops:.4g} FLOP, {ssd_bytes:.0f} B)",
+    print(f"ssd timing at Bt={Bt} S={S} H={H} P={P} N={N} chunk={chunk} bf16, "
+          f"device ms per call (profiler, 20 calls): kernel {ssd_ms:.6f} ("
+          + ", ".join(f"{k} {v:.6f}" for k, v in sorted(ssd_passes.items()))
+          + f")  plain {ssd_plain_ms:.6f}; event ms (mean of 2 rounds of 20, "
+          f"ABBA): kernel {ssd_ev['kernel']:.6f}  plain {ssd_ev['plain']:.6f}; "
+          f"library none (no single PyTorch call computes SSD); bound_ms "
+          f"{ssd_bound_ms:.6f} ({ssd_bound_by}; {ssd_flops:.4g} FLOP, "
+          f"{ssd_bytes:.0f} B); earlier (scalar) {EARLIER_MS['ssd']:.4f}",
           flush=True)
-    del x, dt, A, Bm, Cm, args, full, y1, y2, s1, s2
+    del x, dt, A, Bm, Cm, args, full, y1, y2, s1, s2, fns
     torch.cuda.empty_cache()
+    if opts.kernels_only:
+        print("chip_smoke: stopping after phase 3 (--kernels-only)")
+        return 0
 
     # 4. plan -------------------------------------------------------------------
     print(H100_SXM.describe())
@@ -411,13 +554,13 @@ def main() -> int:
         eng = res["engine"]
         prompt = torch.as_tensor(done[0].prompt[None, :], dtype=torch.long,
                                  device=dev)
-        if arch in ("minicpm-2b", "mamba2-370m"):
-            profile_steps(eng, prompt, {
-                "tokens": prompt[:, :1].expand(MAX_BATCH, 1).contiguous(),
-                "pos": torch.full((MAX_BATCH,), PROMPT_LEN + NEW_TOKENS,
-                                  device=dev)},
-                {"prefill": res["prefill_ms_p50"],
-                 "decode": res["decode_ms_p50"]})
+        profile_steps(eng, prompt, {
+            "tokens": prompt[:, :1].expand(MAX_BATCH, 1).contiguous(),
+            "pos": torch.full((MAX_BATCH,), PROMPT_LEN + NEW_TOKENS,
+                              device=dev)},
+            {"prefill": res["prefill_ms_p50"],
+             "decode": res["decode_ms_p50"]},
+            ("prefill",) if arch == "zamba2-1.2b" else ("prefill", "decode"))
         logits, _ = eng.api.prefill(eng.env, eng.params, {"tokens": prompt})
         if logits.shape != (1, 1, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
@@ -488,10 +631,15 @@ def main() -> int:
         "max_abs_err": errors["serving"],
         "ms": ms["kernel"],
         "kernel_ms": ms["kernel"],
+        "event_ms": ev["kernel"],
+        "earlier_ms": EARLIER_MS["flash"],
         "plain_ms": ms["plain"],
+        "plain_event_ms": ev["plain"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": ms["library"],
+        "library_event_ms": ev["library"],
+        "hmma": {k: n for k, n in hmma.items() if k.startswith("flash")},
     }, {
         "name": "ssd_scan_fwd",
         "route": "cuda",
@@ -500,12 +648,17 @@ def main() -> int:
         "launches": sum(launches["ssd"].values()),
         "launches_by_path": launches["ssd"],
         "max_abs_err": ssd_errors["mamba2"],
-        "ms": ssd_ms["kernel"],
-        "kernel_ms": ssd_ms["kernel"],
-        "plain_ms": ssd_ms["plain"],
+        "ms": ssd_ms,
+        "kernel_ms": ssd_ms,
+        "kernel_ms_by_pass": ssd_passes,
+        "event_ms": ssd_ev["kernel"],
+        "earlier_ms": EARLIER_MS["ssd"],
+        "plain_ms": ssd_plain_ms,
+        "plain_event_ms": ssd_ev["plain"],
         "bound_ms": ssd_bound_ms,
         "bound_by": ssd_bound_by,
         "library_ms": None,
+        "hmma": {k: n for k, n in hmma.items() if k.startswith("chunk")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

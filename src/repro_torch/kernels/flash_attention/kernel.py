@@ -6,7 +6,9 @@ library with a plain C entry point at first use and loaded with ``ctypes``
 when this module is imported.
 
 :func:`flash_attention_fwd` takes the kernel's layout, q (B, H, Sq, hd) and
-k/v (B, K, Skv, hd) with hd 64 or 128, and counts every launch.
+k/v (B, K, Skv, hd) with hd 64 or 128, and counts every launch.  The entry
+point picks the kernel by dtype: bf16 runs on the tensor cores, fp32 on the
+scalar FMA kernel; both take the same shapes.
 """
 
 from __future__ import annotations
@@ -77,7 +79,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q{tuple(q.shape)} and k{tuple(k.shape)} do not "
                          "form a GQA group")
     if hd not in SUPPORTED_HD:
-        raise ValueError(f"head dim {hd} not in {SUPPORTED_HD}; pad it")
+        raise ValueError(f"head dim {hd} not in {SUPPORTED_HD} (the kernels' "
+                         "tile widths); pad it")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(name, t, q.dtype, q.device)
     if q_offset is None:

@@ -3,10 +3,12 @@
 Every hand-written kernel of the port takes this route: its ``csrc/*.cu``
 is compiled for ``sm_90a`` into a shared library under
 ``build/repro_torch_kernels/`` in the repository at first use, and its
-entry point is bound with ``ctypes``.  The library's name carries a hash
-of the source and the flags, so an edited source is rebuilt and a built one
-is reused; a finished build is moved into place atomically, so processes
-that build at once agree.  Nothing is built when this module is imported.
+entry point is bound with ``ctypes``.  Sources include the shared
+headers of ``kernels/csrc/`` (``tensor_core.cuh``).  The library's name
+carries a hash of the source, those headers and the flags, so an edited
+source or header is rebuilt and a built one is reused; a finished build
+is moved into place atomically, so processes that build at once agree.
+Nothing is built when this module is imported.
 
 :func:`check_operand` holds the checks every wrapper makes before it hands
 a tensor's pointer to a kernel.  The helper keeps no state: each kernel
@@ -29,6 +31,8 @@ import torch
 #: the repository root (src/repro_torch/kernels/nvcc.py)
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
+#: headers shared by the kernels' sources (``#include "tensor_core.cuh"``)
+INCLUDE_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: names the built library: a changed source or flag set builds anew
@@ -53,7 +57,11 @@ def build_library(csrc: pathlib.Path, entry: str,
     compiling (0.0 when the library was found) and ``ptxas``, the
     compiler's register/shared-memory report."""
     stem = csrc.stem
-    tag = hashlib.sha256(csrc.read_bytes() + _FLAGS_KEY).hexdigest()[:16]
+    digest = hashlib.sha256(csrc.read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(_FLAGS_KEY)
+    tag = digest.hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"{stem}-{tag}.so"
     log = BUILD_DIR / f"{stem}-{tag}.ptxas.txt"
@@ -61,7 +69,8 @@ def build_library(csrc: pathlib.Path, entry: str,
     if not so.exists():
         tmp = BUILD_DIR / f".{stem}-{tag}-{os.getpid()}.so"
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc)],
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR),
+                               "-o", str(tmp), str(csrc)],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:

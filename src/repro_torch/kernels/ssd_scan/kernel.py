@@ -8,7 +8,10 @@ when this module is imported.
 :func:`ssd_scan_fwd` takes the model layout (x (Bt, S, H, P), dt (Bt, S, H),
 A (H,), B/C (Bt, S, N)), allocates the outputs and the two scratch buffers
 the kernel's passes share, and counts every call: one call is one launch
-of the C entry point, which runs the kernel's three passes.
+of the C entry point, which runs the kernel's three passes.  The entry point
+picks the passes by dtype: bf16 runs the tensor-core passes, which take P
+and N multiples of 16 (:func:`check_tensor_core_shape`), fp32 the scalar
+ones.
 """
 
 from __future__ import annotations
@@ -54,6 +57,15 @@ def reset_launch_count() -> None:
         _launches = 0
 
 
+def check_tensor_core_shape(P: int, N: int) -> None:
+    """Raise ValueError unless the bf16 tensor-core passes take (P, N):
+    both multiples of 16 (the mma.sync tile), P <= 64 and N <= 256."""
+    if P % 16 or N % 16 or not (P <= MAX_P and N <= MAX_N):
+        raise ValueError(f"the bf16 tensor-core SSD kernel needs P and N "
+                         f"multiples of 16 with P <= {MAX_P} and N <= {MAX_N}, "
+                         f"got P={P}, N={N}")
+
+
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, *, chunk: int,
                  init_state: Optional[torch.Tensor] = None
@@ -84,9 +96,12 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not (1 <= P <= MAX_P and 1 <= N <= MAX_N and 1 <= Q <= MAX_Q):
         raise ValueError(f"P={P}, N={N}, Q={Q} outside the kernel's range "
                          f"(P <= {MAX_P}, N <= {MAX_N}, 1 <= Q <= {MAX_Q})")
+    if x.dtype == torch.bfloat16:
+        check_tensor_core_shape(P, N)
     dev = x.device
-    for name, t in (("x", x), ("B", B), ("C", C)):
-        check_operand(name, t, x.dtype, dev, align=x.element_size())
+    for name, t in (("x", x), ("B", B), ("C", C)):   # bf16 rows go by cp.async
+        check_operand(name, t, x.dtype, dev,
+                      align=16 if x.dtype == torch.bfloat16 else 4)
     for name, t in (("dt", dt), ("A", A)):
         check_operand(name, t, torch.float32, dev, align=4)
     if init_state is not None:

@@ -6,9 +6,14 @@ a seed and handed to both.  Tolerances are the reference's own
 (tests/test_kernels.py): fp32 2e-6, bf16 2e-2, q_offset 1e-5.  The CUDA
 kernel itself is held against the plain version on the card (``cuda``
 marker; ``python3 chip_smoke.py`` does the same at the serving shape).
+The bf16 CUDA kernel runs on the tensor cores; its rounding points are
+rehearsed here on the CPU (``_tensor_core_emulation``) against the
+reference at the bf16 tolerance.
 The GPU machine has no JAX, so the reference is imported inside the tests
 that use it and the ``cuda`` tests run there with ``--noconftest -m cuda``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -73,6 +78,65 @@ def test_flash_attention_q_offset():
     np.testing.assert_allclose(_f32(out), _f32(ref), rtol=1e-5, atol=1e-5)
 
 
+def _tensor_core_emulation(q, k, v, q_offset, sm_scale, block_k=64):
+    """The bf16 tensor-core kernel's arithmetic in plain PyTorch: q, k, v
+    in bf16 (B, heads, S, hd); S = q k^T with fp32 sums; the online softmax
+    over 64-key tiles in the log2 domain (exp2, sm_scale * log2 e folded
+    into one multiply); P rounded to bf16 before P V, the row sums taken
+    over the unrounded P in fp32; the output rounded to bf16."""
+    B, H, Sq, hd = q.shape
+    G = H // k.shape[1]
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(G, dim=1) for t in (k, v))
+    scale = sm_scale * math.log2(math.e)
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros(B, H, Sq)
+    acc = torch.zeros(B, H, Sq, hd)
+    q_pos = torch.arange(Sq)[None] + q_offset[:, None].long()
+    for k0 in range(0, kf.shape[2], block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * scale
+        k_pos = torch.arange(k0, k0 + kt.shape[2])
+        visible = k_pos[None, None] <= q_pos[:, :, None]          # (B, Sq, T)
+        s = torch.where(visible[:, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.bfloat16().float(), vt)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).bfloat16()
+
+
+TC_SHAPES = [                       # (B, Sq, Skv, H, K, hd, q_offset)
+    (1, 1024, 1024, 4, 4, 64, 0),   # minicpm / zamba2 prefill, 4 heads
+    (2, 200, 200, 8, 2, 128, 0),    # GQA, ragged last tile, hd 128
+    (1, 33, 33, 4, 4, 64, 0),       # below one tile
+    (2, 96, 256, 4, 4, 64, 160),    # q_offset
+]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_numerics_match_reference(shape):
+    """The bf16 kernel's rounding points (exp2, P in bf16 before P V) stay
+    within the bf16 tolerance of the reference on the same bf16 inputs."""
+    jnp, _ = _jax()
+    from repro.kernels.flash_attention.ref import reference_attention as jax_ref
+    B, Sq, Skv, H, K, hd, off = shape
+    rng = np.random.default_rng(11)
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((B, H, Sq, hd), (B, K, Skv, hd), (B, K, Skv, hd))]
+    offsets = np.full((B,), off, np.int32)
+    ref = jax_ref(*(jnp.asarray(a).astype(jnp.bfloat16) for a in arrays),
+                  q_offset=jnp.asarray(offsets))
+    out = _tensor_core_emulation(
+        *(torch.from_numpy(a).bfloat16() for a in arrays),
+        torch.from_numpy(offsets), hd ** -0.5)
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.parametrize("hd,padded", [(16, 64), (64, 64), (112, 128),
                                         (128, 128)])
 def test_head_dim_padding(hd, padded):
@@ -96,6 +160,8 @@ def test_cuda_kernel_refuses_cpu_tensors():
     # (B, Sq, Skv, H, K, hd, dtype, q_offset, tol)
     (1, 1024, 1024, 36, 36, 64, torch.bfloat16, 0, 2e-2),   # minicpm prefill
     (2, 200, 200, 8, 2, 128, torch.bfloat16, 0, 2e-2),      # GQA, ragged tile
+    (1, 33, 33, 4, 4, 64, torch.bfloat16, 0, 2e-2),         # below one tile
+    (2, 96, 256, 4, 4, 64, torch.bfloat16, 160, 2e-2),      # q_offset, bf16
     (2, 96, 256, 4, 4, 64, torch.float32, 160, 1e-5),       # q_offset
     (1, 333, 333, 4, 4, 112, torch.float32, 0, 2e-6),       # fp32, padded hd
 ])
@@ -116,3 +182,16 @@ def test_cuda_kernel_matches_plain(case):
                                 v.transpose(1, 2), q_offset=q_offset
                                 ).transpose(1, 2)
     torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_bf16_head_dims_off_its_tiles():
+    """hd 96 is no tile width of the tensor-core kernel: the wrapper raises
+    before it builds or launches anything."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q = torch.zeros(1, 2, 8, 96, dtype=torch.bfloat16, device="cuda")
+    before = kernel.launch_count()
+    with pytest.raises(ValueError, match="head dim"):
+        kernel.flash_attention_fwd(q, q, q)
+    assert kernel.launch_count() == before
