@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # every phase
-    python3 chip_smoke.py --kernels-only   # phases 1-3, then stop
+    python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
 
@@ -10,7 +9,7 @@ Phases, each of which exits non-zero on failure:
 2. build: compiles the flash-attention and SSD-scan kernels from their
    csrc/ with nvcc, both at once; prints each kernel function's registers
    and spills from ptxas and its count of HMMA (tensor-core) instructions
-   from ``cuobjdump -sass`` of the built library;
+   from ``cuobjdump -sass`` of the built library, by its demangled name;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
    on the card, with stated tolerances.  bf16 runs the tensor-core kernels,
    fp32 the scalar ones.  Flash: the minicpm serving shape, zamba2-1.2b's
@@ -32,10 +31,9 @@ Phases, each of which exits non-zero on failure:
    counts set to 0 just before and read just after: minicpm-2b 40 flash
    launches per prefill, mamba2-370m 48 SSD launches per prefill,
    zamba2-1.2b 38 SSD and 6 flash launches per prefill.  One warm prefill
-   and one batched decode step of minicpm-2b and of mamba2-370m are traced
-   with torch.profiler (device kernels, their summed time and its share of
-   the step's wall time, the port's kernels by name), and one warm
-   zamba2-1.2b prefill, which runs both kernels;
+   and one batched decode step of each model are traced with
+   torch.profiler (device kernels, their summed time and its share of the
+   step's wall time, the port's kernels by name);
 6. agreement: for each family at a small size in fp32, prefill logits, the
    caches and greedy tokens of 5 ragged requests on the card agree with the
    same model run on the CPU.
@@ -46,7 +44,6 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
-import argparse
 import concurrent.futures
 import dataclasses
 import json
@@ -72,13 +69,6 @@ TOLS = {torch.bfloat16: 2e-2, torch.float32: 2e-6}
 # SSD: the reference's tolerances (tests/test_kernels.py)
 SSD_Y_TOLS = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 SSD_STATE_TOL = 1e-3
-# The first, scalar-FMA design's bf16 time at the same serving shapes (CUDA
-# events, chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
-EARLIER_MS = {"flash": 0.27985199689865115, "ssd": 0.17942960262298585}
-# the port's kernel functions, as they appear in compiler and profiler output
-KERNEL_NAMES = ("flash_fwd_bf16_kernel", "flash_fwd_kernel",
-                "chunk_state_tc_kernel", "chunk_state_kernel", "state_scan_kernel",
-                "chunk_out_tc_kernel", "chunk_out_kernel")
 
 
 def fail(msg: str) -> None:
@@ -99,61 +89,75 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_label(symbol: str) -> str:
-    """A readable name for a (mangled) kernel symbol: the port's kernel
-    name with its leading template argument, else the symbol cut short."""
-    for name in KERNEL_NAMES:
-        at = symbol.find(name)
-        if at >= 0:
-            rest = symbol[at + len(name):]
-            mangled = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", rest)
-            if mangled:
-                args = ["float" if t == "f" else "bf16" if t[0] == "1" else t[2:-1]
-                        for t in re.findall(r"f|13__nv_bfloat16|Li\d+E",
-                                            mangled.group(1))]
-                return f"{name}<{','.join(args)}>"
-            demangled = re.match(r"<([^>(]*)>", rest)
-            if demangled:
-                return f"{name}<{demangled.group(1).replace(' ', '')}>"
-            return name
-    return symbol[:100]
+def toolkit_tool(name: str):
+    """The CUDA toolkit's ``name`` (on PATH or beside nvcc), or None."""
+    nvcc = shutil.which("nvcc")
+    tool = shutil.which(name) or (
+        str(pathlib.Path(nvcc).parent / name) if nvcc else None)
+    return tool if tool and pathlib.Path(tool).exists() else None
+
+
+def kernel_label(demangled: str) -> str:
+    """``name<template args>`` of a demangled kernel symbol, without its
+    return type, anonymous namespace, argument list or integer casts:
+    "void (anonymous namespace)::f<float, (int)64>(float const*, ...)" ->
+    "f<float,64>"."""
+    name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::"
+                  r"|\((?:unsigned )?(?:int|long|short|char)\)", "", demangled)
+    depth = 0
+    for at, c in enumerate(name):
+        depth += (c == "<") - (c == ">")
+        if c == "(" and depth == 0:
+            name = name[:at]
+            break
+    return name.replace(" ", "")
+
+
+def demangle(symbols: list) -> list:
+    """Kernel labels of mangled symbols, demangled by the toolkit's cu++filt
+    (or binutils' c++filt); the symbols as they are when neither exists."""
+    tool = toolkit_tool("cu++filt") or shutil.which("c++filt")
+    if not tool or not symbols:
+        return symbols
+    out = subprocess.run([tool], input="\n".join(symbols), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return [kernel_label(s) for s in out] if len(out) == len(symbols) \
+        else symbols
 
 
 def ptxas_report(log: str) -> dict:
     """{kernel label: (registers, spill store bytes, spill load bytes)}
     from ``nvcc -Xptxas -v`` output."""
-    report, current, spills = {}, None, (0, 0)
+    rows, current, spills = [], None, (0, 0)
     for line in log.splitlines():
         if "Function properties for" in line:
-            current = kernel_label(line.split("Function properties for")[1].strip())
+            current = line.split("Function properties for")[1].strip()
         elif current and "spill stores" in line:
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             spills = (int(found.group(1)), int(found.group(2))) if found else (-1, -1)
         elif current and "Used" in line and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)
-            report[current] = (int(regs.group(1)) if regs else -1, *spills)
+            rows.append((current, (int(regs.group(1)) if regs else -1, *spills)))
             current = None
-    return report
+    return dict(zip(demangle([sym for sym, _ in rows]), (r for _, r in rows)))
 
 
 def sass_hmma_counts(library: str):
     """{kernel label: HMMA instructions} from ``cuobjdump -sass``, or None
     when the toolkit has no cuobjdump."""
-    nvcc = shutil.which("nvcc")
-    tool = shutil.which("cuobjdump") or (
-        str(pathlib.Path(nvcc).parent / "cuobjdump") if nvcc else None)
-    if not tool or not pathlib.Path(tool).exists():
+    tool = toolkit_tool("cuobjdump")
+    if not tool:
         return None
     out = subprocess.run([tool, "-sass", library], capture_output=True,
                          text=True, timeout=300).stdout
-    counts, current = {}, None
+    symbols, counts = [], []
     for line in out.splitlines():
         if "Function :" in line:
-            current = kernel_label(line.split("Function :")[1].strip())
-            counts[current] = 0
-        elif current and "HMMA" in line:
-            counts[current] += 1
-    return counts
+            symbols.append(line.split("Function :")[1].strip())
+            counts.append(0)
+        elif counts and "HMMA" in line:
+            counts[-1] += 1
+    return dict(zip(demangle(symbols), counts))
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3):
@@ -228,12 +232,13 @@ def ssd_work(Bt: int, S: int, H: int, P: int, N: int, chunk: int,
 
 
 def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
-                  wall_ms: dict, which: tuple = ("prefill", "decode")) -> None:
-    """Trace the warm engine's steps in ``which`` (one prefill, one batched
-    decode step) with torch.profiler: device kernels launched, their summed
-    time, that time as a share of the step's unprofiled wall time (the
-    engine's median), the kernels that take the most of it, and the time of
-    each of the port's kernels."""
+                  wall_ms: dict, ours: set) -> None:
+    """Trace one warm prefill and one batched decode step of the engine
+    with torch.profiler: device kernels launched, their summed time, that
+    time as a share of the step's unprofiled wall time (the engine's
+    median), the kernels that take the most of it, and the time of each of
+    the port's kernels (those whose name before its template arguments is
+    in ``ours``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -243,10 +248,10 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
         "decode": lambda: eng.api.decode_step(eng.env, eng.params, eng.cache,
                                               decode_batch),
     }
-    for name in which:
+    for name, step in steps.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            steps[name]()
+            step()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not kernels:
@@ -257,11 +262,11 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
         for e in kernels:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us())
-        ours: dict = {}
+        port_ms: dict = {}
         for k, us in by_name.items():
             label = kernel_label(k)
-            if label.split("<")[0] in KERNEL_NAMES:
-                ours[label] = ours.get(label, 0.0) + us / 1e3
+            if label.split("<")[0] in ours:
+                port_ms[label] = port_ms.get(label, 0.0) + us / 1e3
         busy_ms = sum(by_name.values()) / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         print(json.dumps({"profile": {
@@ -269,16 +274,11 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
             "device_kernels": len(kernels),
             "device_busy_ms": busy_ms, "wall_ms_p50": wall_ms[name],
             "busy_share": busy_ms / wall_ms[name],
-            "port_kernels_ms": ours,
+            "port_kernels_ms": port_ms,
             "top_ms": [[k[:100], v / 1e3] for k, v in top]}}), flush=True)
 
 
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after phase 3 (build, kernel vs plain, "
-                             "timing)")
-    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
@@ -316,20 +316,20 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = {name: pool.submit(mod.build) for name, mod in sources.items()}
         records = {name: f.result() for name, f in builds.items()}
-    hmma = {}
+    hmma, port_kernels = {}, set()
     for name, rec in records.items():
         print(f"build: {name} in {rec['seconds']:.2f} s -> {rec['path']}")
-        for fn, (regs, st, ld) in sorted(ptxas_report(str(rec["ptxas"])).items()):
+        report = ptxas_report(str(rec["ptxas"]))
+        port_kernels |= {fn.split("<")[0] for fn in report}
+        for fn, (regs, st, ld) in sorted(report.items()):
             print(f"  ptxas: {fn}: {regs} registers, {st} bytes spill stores, "
                   f"{ld} bytes spill loads")
-        counts = sass_hmma_counts(rec["path"])
-        if counts is None:
+        hmma[name] = sass_hmma_counts(rec["path"])
+        if hmma[name] is None:
             print("  sass: cuobjdump is missing; HMMA not counted")
             continue
-        for fn, n in sorted(counts.items()):
+        for fn, n in sorted(hmma[name].items()):
             print(f"  sass: {fn}: {n} HMMA")
-        hmma.update({fn: n for fn, n in counts.items() if "_tc_" in fn
-                     or "bf16" in fn})
     sys.stdout.flush()
 
     # 3a. flash kernel vs plain ---------------------------------------------------
@@ -397,8 +397,8 @@ def main() -> int:
           f"{ms['plain']:.6f}  library (SDPA) {ms['library']:.6f}; event ms "
           f"(mean of 2 rounds of 20, ABBA): kernel {ev['kernel']:.6f}  plain "
           f"{ev['plain']:.6f}  library {ev['library']:.6f}; bound_ms "
-          f"{bound_ms:.6f} ({bound_by}; {flops:.4g} FLOP, {nbytes} B); "
-          f"earlier (scalar) {EARLIER_MS['flash']:.4f}", flush=True)
+          f"{bound_ms:.6f} ({bound_by}; {flops:.4g} FLOP, {nbytes} B)",
+          flush=True)
     del q, k, v, fns
 
     # 3b. SSD kernel vs plain -------------------------------------------------------
@@ -488,13 +488,9 @@ def main() -> int:
           f"ABBA): kernel {ssd_ev['kernel']:.6f}  plain {ssd_ev['plain']:.6f}; "
           f"library none (no single PyTorch call computes SSD); bound_ms "
           f"{ssd_bound_ms:.6f} ({ssd_bound_by}; {ssd_flops:.4g} FLOP, "
-          f"{ssd_bytes:.0f} B); earlier (scalar) {EARLIER_MS['ssd']:.4f}",
-          flush=True)
+          f"{ssd_bytes:.0f} B)", flush=True)
     del x, dt, A, Bm, Cm, args, full, y1, y2, s1, s2, fns
     torch.cuda.empty_cache()
-    if opts.kernels_only:
-        print("chip_smoke: stopping after phase 3 (--kernels-only)")
-        return 0
 
     # 4. plan -------------------------------------------------------------------
     print(H100_SXM.describe())
@@ -559,8 +555,7 @@ def main() -> int:
             "pos": torch.full((MAX_BATCH,), PROMPT_LEN + NEW_TOKENS,
                               device=dev)},
             {"prefill": res["prefill_ms_p50"],
-             "decode": res["decode_ms_p50"]},
-            ("prefill",) if arch == "zamba2-1.2b" else ("prefill", "decode"))
+             "decode": res["decode_ms_p50"]}, port_kernels)
         logits, _ = eng.api.prefill(eng.env, eng.params, {"tokens": prompt})
         if logits.shape != (1, 1, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
@@ -632,14 +627,13 @@ def main() -> int:
         "ms": ms["kernel"],
         "kernel_ms": ms["kernel"],
         "event_ms": ev["kernel"],
-        "earlier_ms": EARLIER_MS["flash"],
         "plain_ms": ms["plain"],
         "plain_event_ms": ev["plain"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": ms["library"],
         "library_event_ms": ev["library"],
-        "hmma": {k: n for k, n in hmma.items() if k.startswith("flash")},
+        "hmma": hmma["flash_fwd.cu"],
     }, {
         "name": "ssd_scan_fwd",
         "route": "cuda",
@@ -652,13 +646,12 @@ def main() -> int:
         "kernel_ms": ssd_ms,
         "kernel_ms_by_pass": ssd_passes,
         "event_ms": ssd_ev["kernel"],
-        "earlier_ms": EARLIER_MS["ssd"],
         "plain_ms": ssd_plain_ms,
         "plain_event_ms": ssd_ev["plain"],
         "bound_ms": ssd_bound_ms,
         "bound_by": ssd_bound_by,
         "library_ms": None,
-        "hmma": {k: n for k, n in hmma.items() if k.startswith("chunk")},
+        "hmma": hmma["ssd_fwd.cu"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
