@@ -6,8 +6,8 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles the flash-attention and SSD-scan kernels from their
-   csrc/ with nvcc, both at once; prints each kernel function's registers
+2. build: compiles the flash-attention, SSD-scan and sweep kernels from
+   their csrc/ with nvcc, all at once; prints each kernel function's registers
    and spills from ptxas and its count of HMMA (tensor-core) instructions
    from ``cuobjdump -sass`` of the built library, by its demangled name;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
@@ -36,7 +36,23 @@ Phases, each of which exits non-zero on failure:
    step's wall time, the port's kernels by name);
 6. agreement: for each family at a small size in fp32, prefill logits, the
    caches and greedy tokens of 5 ragged requests on the card agree with the
-   same model run on the CPU.
+   same model run on the CPU;
+7. scheduler: each of the six seed DAGs, planned at 100 t/s with mba/sam,
+   is swept over ``benchmarks/bench_sweep.py``'s grid (50 rates from 10 to
+   150 t/s, 60 s at dt 0.05) by ``DataflowSimulator.sweep_raw`` on the
+   sweep kernel, with the launch count set to 0 just before the six sweeps
+   and read just after (one launch each).  Every raw field agrees with the
+   port's numpy engine and with the kernel's plain PyTorch version on the
+   card (the same tensors) to 1e-10; verdicts and ``max_stable_rate`` are
+   equal; one SweepBatch co-simulation of two DAGs on a shared pool agrees
+   with numpy.  Then ``plan(mapper="search")`` for traffic, finance and grid
+   at 50 and 100 t/s, with the count set to 0 just before each: the winner
+   and the rank order equal the numpy engine's search, the launches equal
+   the shape buckets, and the buckets are the reference's power-of-two
+   ones.  The kernel is timed by device time (profiler) at the grid sweep
+   and the grid search's buckets, beside the plain version's event time on
+   the same tensors and the numpy engine's host time; one
+   ``{"scheduler": ...}`` line carries it all.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
@@ -45,6 +61,7 @@ The line before the last is the kernels JSON; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -52,6 +69,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -62,6 +80,8 @@ HERE = pathlib.Path(__file__).resolve().parent
 # bandwidth.
 PEAK_BF16 = 989e12
 HBM_BW = 3.35e12
+# FP64 outside the tensor cores (the sweep kernel's scalar float64 work)
+PEAK_FP64 = 34e12
 
 ARCHS = ("minicpm-2b", "mamba2-370m", "zamba2-1.2b")
 REQUESTS, PROMPT_LEN, NEW_TOKENS, MAX_BATCH, SEED = 8, 1024, 32, 4, 0
@@ -196,8 +216,8 @@ def time_abba(fns: dict, order: tuple) -> dict:
     return {n: sum(s) / len(s) for n, s in samples.items()}
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BW
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -277,6 +297,311 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
             "port_kernels_ms": port_ms,
             "top_ms": [[k[:100], v / 1e3] for k, v in top]}}), flush=True)
 
+SWEEP_OMEGAS = np.linspace(10.0, 150.0, 50)       # benchmarks/bench_sweep.py
+SWEEP_KW = dict(duration=60.0, dt=0.05)
+SEARCH_DAGS, SEARCH_RATES = ("traffic", "finance", "grid"), (50.0, 100.0)
+SWEEP_TOL = 1e-10                                  # tests/test_simulator_scan.py
+RAW_FIELDS = ("queues", "busy", "served", "realized", "latency")
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name: str):
+    """Record the arguments of every call of ``module.name`` (calls go
+    through unchanged)."""
+    calls, original = [], getattr(module, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return original(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+def sweep_work(structure, caps: np.ndarray, steps: int, s0: int,
+               n_samples: int):
+    """Least float64 operations and bytes of one sweep launch on this run's
+    data, and the operations one thread (one column) does in sequence.
+    Per tick and column: 2 per in-edge (multiply, add), 7 per group
+    (arrivals, their dt product, the queue add, cap dt, min, subtract, the
+    row sum) and a divide per row with groups; per window tick 1 per group
+    (served) and 2 per group with cap > 0 (divide, busy add); per sample 4
+    per group with cap > 0, 2 per in-edge, an add per row with in-edges and
+    the sink maxima.  Bytes: every input read once, every output written
+    once."""
+    C, G, K = caps.shape
+    rows, edges = structure.row_slices, structure.in_edges
+    T, E, S, n_out = len(rows), structure.n_edges, structure.n_slots, \
+        structure.n_out
+    window = max(steps - s0, 0)
+    per_column = (steps * (2 * E + 7 * G + sum(hi > lo for lo, hi in rows))
+                  + window * G
+                  + n_samples * (2 * E + sum(bool(e) for e in edges)
+                                 + sum(max(len(r) - 1, 0)
+                                       for r in structure.sink_groups)))
+    n_pos = int((caps > 0).sum())
+    flops = C * K * per_column + (2 * window + 4 * n_samples) * n_pos
+    n_sink_rows = sum(len(r) for r in structure.sink_groups)
+    nbytes = (8 * C * G * K + 8 * T * K + 12 * C * G + 8 * C * E
+              + 4 * (2 * (T + 1) + E + n_out + 1 + n_sink_rows) + 8 * E
+              + 8 * C * K * (2 * G + S + T + n_samples * n_out))
+    return float(flops), float(nbytes), flops / (C * K)
+
+
+def pow2_buckets(search_mod, dag, alloc, lib, ranked) -> list:
+    """Candidates per shape bucket as the reference's vmapped engine forms
+    them (``repro/core/search.py:281-290``), from the search's pool."""
+    from repro_torch.core.predictor import build_group_index
+
+    def p2(n: int) -> int:
+        return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+    buckets: dict = {}
+    cands = search_mod.generate_candidates(dag, alloc, ranked.vms, lib)
+    for i, cand in enumerate(cands):
+        gi = build_group_index(dag, alloc, cand.mapping, lib, ranked.policy)
+        key = (tuple(p2(hi - lo) if hi > lo else 0
+                     for lo, hi in gi.row_slices()), p2(len(gi.slots)))
+        buckets.setdefault(key, []).append(i)
+    return [len(v) for v in buckets.values()]
+
+
+def max_err(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max()) if a.size else 0.0
+
+
+def scheduler_phase(dev: torch.device):
+    """Phase 7; returns the scheduler JSON and the sweep kernel's entry of
+    the kernels line."""
+    from repro_torch.core import (ALL_DAGS, ALLOCATORS, DataflowSimulator,
+                                  SweepBatch, paper_library, plan,
+                                  scan_kernel_cache_stats)
+    from repro_torch.core import search as search_mod
+    from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
+    from repro_torch.kernels.sweep_scan.ref import (n_samples_of,
+                                                    sweep_scan_reference)
+
+    lib = paper_library()
+    sims = {}
+    for name in sorted(ALL_DAGS):
+        s = plan(ALL_DAGS[name](), 100.0, lib, allocator="mba", mapper="sam")
+        sims[name] = DataflowSimulator(s.dag, s.allocation, s.mapping, lib)
+
+    # the main path: six sweeps on the kernel, counted
+    raws, walls = {}, {}
+    with recorded_calls(sweep_kernel, "sweep_scan_fwd") as calls:
+        sweep_kernel.reset_launch_count()
+        for name, sim in sims.items():    # each ends in a read of the result
+            t0 = time.perf_counter()
+            raws[name] = sim.sweep_raw(SWEEP_OMEGAS, **SWEEP_KW)
+            walls[name] = (time.perf_counter() - t0) * 1e3
+        sweep_launches = sweep_kernel.launch_count()
+    if sweep_launches != len(sims):
+        fail(f"sweep kernel launches {sweep_launches}, expected {len(sims)}")
+    sweeps, worst = {}, 0.0
+    for (name, sim), (args, kw) in zip(sims.items(), calls):
+        raw = raws[name]
+        t0 = time.perf_counter()
+        host = sim.sweep_raw(SWEEP_OMEGAS, engine="numpy", **SWEEP_KW)
+        numpy_s = time.perf_counter() - t0
+        # the kernel on the same card tensors, against its plain version
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        plain = sweep_scan_reference(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        kern = sweep_kernel.sweep_scan_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        err_plain = {f: float((k - p).abs().max()) if k.numel() else 0.0
+                     for f, k, p in zip(RAW_FIELDS, kern, plain)}
+        close_plain = all(torch.allclose(k, p, rtol=SWEEP_TOL, atol=SWEEP_TOL)
+                          for k, p in zip(kern, plain))
+        err_numpy = {f: max_err(getattr(raw, f), getattr(host, f))
+                     for f in RAW_FIELDS}
+        close_numpy = all(
+            getattr(raw, f).shape == getattr(host, f).shape and np.allclose(
+                getattr(raw, f), getattr(host, f), rtol=SWEEP_TOL,
+                atol=SWEEP_TOL) for f in RAW_FIELDS)
+        batch = sim._batch
+        res_k = batch.results_from_raw([SWEEP_OMEGAS], raw)[0]
+        res_n = batch.results_from_raw([SWEEP_OMEGAS], host)[0]
+        stable_k = [r.stable for r in res_k]
+        same_verdicts = stable_k == [r.stable for r in res_n]
+        msr = {e: sim.max_stable_rate(engine=e) for e in ("scan", "numpy")}
+        spec = batch.spec
+        sweeps[name] = {
+            "T": spec.n_rows, "G": spec.n_groups, "S": len(spec.slots),
+            "E": sum(len(e) for e in spec.in_edges),
+            "max_abs_err_vs_numpy": max(err_numpy.values()),
+            "max_abs_err_vs_plain": max(err_plain.values()),
+            "wall_ms": walls[name], "plain_event_ms": plain_ms,
+            "numpy_host_ms": numpy_s * 1e3,
+            "stable_rates": int(sum(stable_k)),
+            "verdicts_equal": same_verdicts,
+            "max_stable_rate": msr["scan"],
+            "max_stable_rate_numpy": msr["numpy"]}
+        worst = max(worst, max(err_plain.values()))
+        ok = close_plain and close_numpy and same_verdicts and \
+            msr["scan"] == msr["numpy"]
+        print(f"sweep [{name}] T={spec.n_rows} G={spec.n_groups} S="
+              f"{len(spec.slots)}, 50 rates x {raw.steps} ticks in "
+              f"{walls[name]:.3f} ms (numpy {numpy_s * 1e3:.3f}): kernel vs "
+              f"numpy max_abs_err {max(err_numpy.values()):.3g}, vs plain on "
+              f"the card {max(err_plain.values()):.3g} (tol {SWEEP_TOL:g} abs "
+              f"+ rel); stable {sum(stable_k)}/50, verdicts equal "
+              f"{same_verdicts}; max_stable_rate {msr['scan']} (numpy "
+              f"{msr['numpy']}) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the sweep kernel disagrees on {name}")
+        if name == "grid":
+            grid_args, grid_plain_ms = (args, kw), plain_ms
+            grid_numpy_ms = numpy_s * 1e3
+
+    # co-simulation of two DAGs on one pool (planned apart: shared slot ids)
+    pair = SweepBatch([sims["linear"], sims["diamond"]])
+    grids = [SWEEP_OMEGAS, 0.8 * SWEEP_OMEGAS]
+    co_k = pair.sweep_raw(grids, **SWEEP_KW)
+    co_n = pair.sweep_raw(grids, engine="numpy", **SWEEP_KW)
+    co_err = max(max_err(getattr(co_k, f), getattr(co_n, f))
+                 for f in RAW_FIELDS)
+    shared = len(pair.spec.slots) < sum(len(s.gi.slots) for s in pair.sims)
+    print(f"co-simulation [linear + diamond, {len(pair.spec.slots)} slots, "
+          f"shared {shared}]: kernel vs numpy max_abs_err {co_err:.3g} "
+          f"(tol {SWEEP_TOL:g})", flush=True)
+    if co_err > SWEEP_TOL or not shared:
+        fail("the co-simulated sweep disagrees with numpy")
+
+    # the main path: plan(mapper="search"), counted per plan
+    searches, search_launches = [], 0
+    for name in SEARCH_DAGS:
+        for omega in SEARCH_RATES:
+            dag = ALL_DAGS[name]()
+            sweep_kernel.reset_launch_count()
+            t0 = time.perf_counter()
+            sched = plan(dag, omega, lib, mapper="search")
+            plan_ms = (time.perf_counter() - t0) * 1e3
+            launches = sweep_kernel.launch_count()
+            search_launches += launches
+            with recorded_calls(sweep_kernel, "sweep_scan_fwd") as calls:
+                ranked = search_mod.search_mapping(dag, omega, lib)
+            t0 = time.perf_counter()
+            host = search_mod.search_mapping(dag, omega, lib, engine="numpy")
+            numpy_s = time.perf_counter() - t0
+            alloc = ALLOCATORS["mba"](dag, omega, lib)
+            want_buckets = pow2_buckets(search_mod, dag, alloc, lib, ranked)
+            order = [c.name for c in ranked.candidates]
+            entry = {
+                "dag": name, "omega": omega, "winner": sched.search_winner,
+                "winner_numpy": host.best.name,
+                "rank_order_equal": order == [c.name for c in host.candidates],
+                "same_mapping": sched.mapping.assignment
+                == host.best.mapping.assignment,
+                "candidates": len(order), "bucket_sizes": ranked.bucket_sizes,
+                "launches": launches, "plan_wall_ms": plan_ms,
+                "numpy_host_ms": numpy_s * 1e3,
+                "max_stable_rate": ranked.best.max_stable_rate}
+            searches.append(entry)
+            ok = (entry["winner"] == host.best.name == ranked.best.name
+                  and entry["rank_order_equal"] and entry["same_mapping"]
+                  and ranked.bucket_sizes == want_buckets
+                  and launches == len(calls) == len(ranked.bucket_sizes))
+            print(f"search [{name} @ {omega:g}]: plan in {plan_ms:.3f} ms "
+                  f"(numpy engine's search {numpy_s * 1e3:.3f}), winner "
+                  f"{sched.search_winner} (numpy {host.best.name}), "
+                  f"{len(order)} candidates in "
+                  f"buckets {ranked.bucket_sizes} (reference's "
+                  f"{want_buckets}), {launches} launches, rank order equal "
+                  f"{entry['rank_order_equal']} {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok:
+                fail(f"the kernel's search disagrees on {name} at {omega:g}")
+            if (name, omega) == ("grid", 100.0):
+                grid_search_calls, grid_search_numpy_ms = calls, numpy_s * 1e3
+
+    # timing: the grid sweep, and the grid search's buckets
+    args, kw = grid_args
+    total, by_kernel = device_ms(lambda: sweep_kernel.sweep_scan_fwd(*args,
+                                                                     **kw))
+    sweep_ms = sum(v for k, v in by_kernel.items() if "sweep_scan" in k)
+    sweep_event_ms = time_ms(lambda: sweep_kernel.sweep_scan_fwd(*args, **kw))
+    structure = args[5]
+    flops, nbytes, thread_ops = sweep_work(
+        structure, args[0].cpu().numpy(), kw["steps"], kw["s0"],
+        n_samples_of(kw["steps"], kw["sample_every"]))
+    sweep_bound_ms, sweep_bound_by = bound(flops, nbytes, PEAK_FP64)
+    bucket_ms, bucket_plain_ms = [], []
+    for b_args, b_kw in grid_search_calls:
+        _, by_k = device_ms(lambda: sweep_kernel.sweep_scan_fwd(*b_args,
+                                                                **b_kw),
+                            iters=5)
+        bucket_ms.append(sum(v for k, v in by_k.items() if "sweep_scan" in k))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        sweep_scan_reference(*b_args, **b_kw)
+        end.record()
+        torch.cuda.synchronize()
+        bucket_plain_ms.append(start.elapsed_time(end))
+    timing = {
+        "grid_sweep": {
+            "C": 1, "K": len(SWEEP_OMEGAS), "steps": kw["steps"],
+            "kernel_ms": sweep_ms, "kernel_event_ms": sweep_event_ms,
+            "plain_event_ms": grid_plain_ms, "numpy_host_ms": grid_numpy_ms,
+            "bound_ms": sweep_bound_ms, "bound_by": sweep_bound_by,
+            "flops": flops, "bytes": nbytes,
+            "thread_serial_ops": thread_ops,
+            "kernel_ns_per_serial_op": sweep_ms * 1e6 / thread_ops},
+        "grid_search_100": {
+            "buckets": [int(a[0].shape[0]) for a, _ in grid_search_calls],
+            "K": int(grid_search_calls[0][0][0].shape[2]),
+            "steps": grid_search_calls[0][1]["steps"],
+            "kernel_ms_per_bucket": bucket_ms,
+            "kernel_ms": sum(bucket_ms),
+            "plain_event_ms_per_bucket": bucket_plain_ms,
+            "plain_event_ms": sum(bucket_plain_ms),
+            "numpy_host_ms": grid_search_numpy_ms}}
+    print(f"sweep timing at the grid sweep (C=1, K=50, {kw['steps']} ticks), "
+          f"ms: kernel {sweep_ms:.6f} (device, profiler) / "
+          f"{sweep_event_ms:.6f} (events); plain on the card "
+          f"{grid_plain_ms:.6f} (events, 1 call); numpy engine "
+          f"{grid_numpy_ms:.6f} (host); bound_ms {sweep_bound_ms:.6f} "
+          f"({sweep_bound_by}; {flops:.4g} FP64 FLOP, {nbytes:.0f} B); "
+          f"{thread_ops:.0f} operations in sequence per thread, "
+          f"{sweep_ms * 1e6 / thread_ops:.3f} ns each", flush=True)
+    print(f"sweep timing at the grid search at 100 t/s (buckets "
+          f"{timing['grid_search_100']['buckets']}), ms: kernel "
+          f"{sum(bucket_ms):.6f} (device, summed over buckets); plain on the "
+          f"card {sum(bucket_plain_ms):.6f} (events); numpy engine search "
+          f"{grid_search_numpy_ms:.6f} (host, whole search)", flush=True)
+    print(json.dumps({"scheduler": {
+        "sweeps": sweeps, "sweep_launches": sweep_launches,
+        "cosim": {"dags": ["linear", "diamond"],
+                  "slots": len(pair.spec.slots),
+                  "max_abs_err_vs_numpy": co_err},
+        "searches": searches, "timing": timing,
+        "cache": scan_kernel_cache_stats()}}), flush=True)
+    return {
+        "name": "sweep_scan_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/sweep_scan/csrc/sweep_scan.cu",
+        "replaces": "src/repro/core/simulator.py:652",
+        "launches": sweep_launches + search_launches,
+        "launches_by_path": {"sweep_raw": sweep_launches,
+                             "plan_search": search_launches},
+        "max_abs_err": worst,
+        "ms": sweep_ms,
+        "kernel_ms": sweep_ms,
+        "event_ms": sweep_event_ms,
+        "plain_ms": grid_plain_ms,
+        "plain_event_ms": grid_plain_ms,
+        "bound_ms": sweep_bound_ms,
+        "bound_by": sweep_bound_by,
+        "library_ms": None,
+    }
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -291,6 +616,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
+    from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
     from repro_torch.launch.serve import run_serving, scale_config
     from repro_torch.models import Env, get_model
     from repro_torch.serve import ServeEngine, plan_serving
@@ -312,7 +638,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
     # 2. build: one nvcc per source, started together ---------------------------
-    sources = {"flash_fwd.cu": kernel, "ssd_fwd.cu": ssd_kernel}
+    sources = {"flash_fwd.cu": kernel, "ssd_fwd.cu": ssd_kernel,
+               "sweep_scan.cu": sweep_kernel}
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = {name: pool.submit(mod.build) for name, mod in sources.items()}
         records = {name: f.result() for name, f in builds.items()}
@@ -616,6 +943,9 @@ def main() -> int:
             fail(f"{arch}: the port on the card disagrees with the same "
                  "model on the CPU")
 
+    # 7. scheduler: the sweep engine and the mapper search -------------------------
+    sweep_entry = scheduler_phase(dev)
+
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -652,7 +982,7 @@ def main() -> int:
         "bound_by": ssd_bound_by,
         "library_ms": None,
         "hmma": hmma["ssd_fwd.cu"],
-    }]}))
+    }, sweep_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -9,7 +9,7 @@ Figs. 7-8).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from .allocation import ALLOCATORS, Allocation
 from .dag import Dataflow
@@ -20,6 +20,7 @@ from .mapping import (DEFAULT_VM_SIZES, MAPPERS, PRICE_PER_SLOT_HOUR,
 from .perfmodel import ModelLibrary
 from .predictor import predict_max_rate, predict_resources
 from .routing import RoutingPolicy
+from ..obs.trace import trace as _obs_trace
 
 #: Give up after this many +1-slot retries (a mapper that cannot place with
 #: 4x the estimate is a bug, not fragmentation).
@@ -37,8 +38,8 @@ class Schedule:
     mapper: str
     estimated_slots: int     # rho from the allocation
     acquired_slots: int      # slots actually acquired (>= rho on retries)
-    #: the winning candidate's name under the reference's ``mapper="search"``,
-    #: which this package does not carry yet; always None here
+    #: with ``mapper="search"``: the winning candidate's name (e.g. "sam" or
+    #: "rsm[2,1,1]+move3") from the simulation-guided search
     search_winner: Optional[str] = None
 
     @property
@@ -86,12 +87,14 @@ class Schedule:
         return "\n".join(lines)
 
 
+@_obs_trace("plan")
 def plan(dag: Dataflow, omega: float, models: ModelLibrary,
          *, allocator: str = "mba", mapper: str = "sam",
          vm_sizes: VmSizesArg = DEFAULT_VM_SIZES,
          fixed_vms: Optional[Sequence[VM]] = None,
          grow_fixed_vms: bool = False,
-         allocation: Optional[Allocation] = None) -> Schedule:
+         allocation: Optional[Allocation] = None,
+         search_opts: Optional[Dict] = None) -> Schedule:
     """Plan a schedule for ``dag`` at input rate ``omega``.
 
     ``fixed_vms`` pins the cluster (the §8.5 five-D3-VM experiments);
@@ -101,6 +104,17 @@ def plan(dag: Dataflow, omega: float, models: ModelLibrary,
     appending fresh 1-slot VMs (ids above the pinned set) instead of
     propagating the mapper failure — the fleet planner's per-DAG path, which
     keeps VM ids unique across a shared pool.
+
+    ``mapper="search"`` replaces the single §7 mapper with the
+    simulation-guided candidate search (:mod:`repro_torch.core.search`):
+    the whole DSM/RSM/SAM + weight-sweep + local-move pool is scored on the
+    batched sweep kernel and the empirically best mapping wins (its
+    candidate name lands in ``Schedule.search_winner``).  ``search_opts``
+    are keyword overrides for :func:`repro_torch.core.search.search_mapping`
+    (grids, moves, seeds, policy, engine, ``device``: where the sweeps run,
+    CUDA unless it says ``"cpu"``, ...); keys the pipeline owns — pool,
+    allocation, allocator, ``vm_sizes`` — are reserved and raise
+    ``ValueError``.
 
     ``vm_sizes`` also accepts :class:`~repro_torch.core.mapping.VmClass`
     objects or a registered family name.  On a ``speed=s`` class the
@@ -112,8 +126,8 @@ def plan(dag: Dataflow, omega: float, models: ModelLibrary,
     ``allocation`` skips re-allocating when the caller already holds the
     allocation for exactly (``dag``, effective ``omega``, ``allocator``).
 
-    Not carried over yet: the ``validate=`` verifier passes and
-    ``mapper="search"`` with its ``search_opts`` (see ROADMAP.md).
+    Not carried over yet: the ``validate=`` verifier passes (see
+    ROADMAP.md).
     """
     fixed = fixed_vms is not None
     speed = pool_speed(fixed_vms, default=1.0) if fixed \
@@ -123,6 +137,25 @@ def plan(dag: Dataflow, omega: float, models: ModelLibrary,
     alloc = allocation if allocation is not None \
         else ALLOCATORS[allocator](dag, omega / speed, models)
     rho = alloc.slots
+
+    if mapper == "search":
+        from .search import RESERVED_SEARCH_OPTS, search_mapping
+        opts = dict(search_opts or {})
+        bad = RESERVED_SEARCH_OPTS & set(opts)
+        if bad:
+            raise ValueError(f"search_opts may not override {sorted(bad)} "
+                             "(owned by the planning pipeline)")
+        ranked = search_mapping(
+            dag, omega, models, allocator=allocator, allocation=alloc,
+            vms=fixed_vms, vm_sizes=vm_sizes,
+            grow_pool=(not fixed) or grow_fixed_vms, **opts)
+        best = ranked.best
+        return Schedule(
+            dag, omega, alloc, list(ranked.vms), best.mapping,
+            allocator, "search", estimated_slots=rho,
+            acquired_slots=sum(vm.num_slots for vm in ranked.vms),
+            search_winner=best.name)
+
     map_fn = MAPPERS[mapper]
 
     if fixed and not grow_fixed_vms:
