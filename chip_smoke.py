@@ -48,8 +48,10 @@ Phases, each of which exits non-zero on failure:
    with numpy.  Then ``plan(mapper="search")`` for traffic, finance and grid
    at 50 and 100 t/s, with the count set to 0 just before each: the winner
    and the rank order equal the numpy engine's search, the launches equal
-   the shape buckets, and the buckets are the reference's power-of-two
-   ones.  The kernel is timed by device time (profiler) at the grid sweep
+   the shape buckets, the buckets are the reference's power-of-two ones,
+   and every bucket's kernel outputs (candidates on the grid's y axis,
+   padded groups) agree with the plain version on the same card tensors to
+   1e-10, field by field.  The kernel is timed by device time (profiler) at the grid sweep
    and the grid search's buckets, beside the plain version's event time on
    the same tensors and the numpy engine's host time; one
    ``{"scheduler": ...}`` line carries it all.
@@ -306,13 +308,14 @@ RAW_FIELDS = ("queues", "busy", "served", "realized", "latency")
 
 @contextlib.contextmanager
 def recorded_calls(module, name: str):
-    """Record the arguments of every call of ``module.name`` (calls go
-    through unchanged)."""
+    """Record the arguments and result of every call of ``module.name`` as
+    ``(args, kw, out)`` (calls go through unchanged)."""
     calls, original = [], getattr(module, name)
 
     def record(*args, **kw):
-        calls.append((args, kw))
-        return original(*args, **kw)
+        out = original(*args, **kw)
+        calls.append((args, kw, out))
+        return out
 
     setattr(module, name, record)
     try:
@@ -373,6 +376,22 @@ def max_err(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(a - b).max()) if a.size else 0.0
 
 
+def against_plain(reference, args, kw, kern) -> tuple:
+    """Run the plain version on the kernel call's own card tensors and hold
+    the kernel's outputs ``kern`` against it field by field: (max abs error,
+    all fields within SWEEP_TOL, the plain call's event time in ms)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    plain = reference(*args, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    err = max((float((k - p).abs().max()) if k.numel() else 0.0
+               for k, p in zip(kern, plain)), default=0.0)
+    close = all(k.shape == p.shape and torch.allclose(
+        k, p, rtol=SWEEP_TOL, atol=SWEEP_TOL) for k, p in zip(kern, plain))
+    return err, close, start.elapsed_time(end)
+
+
 def scheduler_phase(dev: torch.device):
     """Phase 7; returns the scheduler JSON and the sweep kernel's entry of
     the kernels line."""
@@ -402,24 +421,15 @@ def scheduler_phase(dev: torch.device):
     if sweep_launches != len(sims):
         fail(f"sweep kernel launches {sweep_launches}, expected {len(sims)}")
     sweeps, worst = {}, 0.0
-    for (name, sim), (args, kw) in zip(sims.items(), calls):
+    for (name, sim), (args, kw, kern) in zip(sims.items(), calls):
         raw = raws[name]
         t0 = time.perf_counter()
         host = sim.sweep_raw(SWEEP_OMEGAS, engine="numpy", **SWEEP_KW)
         numpy_s = time.perf_counter() - t0
-        # the kernel on the same card tensors, against its plain version
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        plain = sweep_scan_reference(*args, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        plain_ms = start.elapsed_time(end)
-        kern = sweep_kernel.sweep_scan_fwd(*args, **kw)
-        torch.cuda.synchronize()
-        err_plain = {f: float((k - p).abs().max()) if k.numel() else 0.0
-                     for f, k, p in zip(RAW_FIELDS, kern, plain)}
-        close_plain = all(torch.allclose(k, p, rtol=SWEEP_TOL, atol=SWEEP_TOL)
-                          for k, p in zip(kern, plain))
+        # the main path's kernel outputs against the plain version on the
+        # same card tensors
+        err_plain, close_plain, plain_ms = against_plain(
+            sweep_scan_reference, args, kw, kern)
         err_numpy = {f: max_err(getattr(raw, f), getattr(host, f))
                      for f in RAW_FIELDS}
         close_numpy = all(
@@ -437,21 +447,21 @@ def scheduler_phase(dev: torch.device):
             "T": spec.n_rows, "G": spec.n_groups, "S": len(spec.slots),
             "E": sum(len(e) for e in spec.in_edges),
             "max_abs_err_vs_numpy": max(err_numpy.values()),
-            "max_abs_err_vs_plain": max(err_plain.values()),
+            "max_abs_err_vs_plain": err_plain,
             "wall_ms": walls[name], "plain_event_ms": plain_ms,
             "numpy_host_ms": numpy_s * 1e3,
             "stable_rates": int(sum(stable_k)),
             "verdicts_equal": same_verdicts,
             "max_stable_rate": msr["scan"],
             "max_stable_rate_numpy": msr["numpy"]}
-        worst = max(worst, max(err_plain.values()))
+        worst = max(worst, err_plain)
         ok = close_plain and close_numpy and same_verdicts and \
             msr["scan"] == msr["numpy"]
         print(f"sweep [{name}] T={spec.n_rows} G={spec.n_groups} S="
               f"{len(spec.slots)}, 50 rates x {raw.steps} ticks in "
               f"{walls[name]:.3f} ms (numpy {numpy_s * 1e3:.3f}): kernel vs "
               f"numpy max_abs_err {max(err_numpy.values()):.3g}, vs plain on "
-              f"the card {max(err_plain.values()):.3g} (tol {SWEEP_TOL:g} abs "
+              f"the card {err_plain:.3g} (tol {SWEEP_TOL:g} abs "
               f"+ rel); stable {sum(stable_k)}/50, verdicts equal "
               f"{same_verdicts}; max_stable_rate {msr['scan']} (numpy "
               f"{msr['numpy']}) {'ok' if ok else 'MISMATCH'}", flush=True)
@@ -475,19 +485,36 @@ def scheduler_phase(dev: torch.device):
     if co_err > SWEEP_TOL or not shared:
         fail("the co-simulated sweep disagrees with numpy")
 
-    # the main path: plan(mapper="search"), counted per plan
+    # the main path: plan(mapper="search"), counted per plan; its search's
+    # ranking and every bucket's launch are recorded from that one run
     searches, search_launches = [], 0
     for name in SEARCH_DAGS:
         for omega in SEARCH_RATES:
             dag = ALL_DAGS[name]()
-            sweep_kernel.reset_launch_count()
-            t0 = time.perf_counter()
-            sched = plan(dag, omega, lib, mapper="search")
-            plan_ms = (time.perf_counter() - t0) * 1e3
-            launches = sweep_kernel.launch_count()
+            with recorded_calls(search_mod, "search_mapping") as searched, \
+                    recorded_calls(sweep_kernel, "sweep_scan_fwd") as calls:
+                sweep_kernel.reset_launch_count()
+                t0 = time.perf_counter()
+                sched = plan(dag, omega, lib, mapper="search")
+                plan_ms = (time.perf_counter() - t0) * 1e3
+                launches = sweep_kernel.launch_count()
             search_launches += launches
-            with recorded_calls(sweep_kernel, "sweep_scan_fwd") as calls:
-                ranked = search_mod.search_mapping(dag, omega, lib)
+            ranked = searched[0][2]
+            # every bucket at its search shape (C candidates, padded groups)
+            # against the plain version on the same card tensors
+            bucket_errs, bucket_plain_ms, buckets_close = [], [], True
+            for b_args, b_kw, b_out in calls:
+                err, close, ms = against_plain(sweep_scan_reference, b_args,
+                                               b_kw, b_out)
+                bucket_errs.append(err)
+                bucket_plain_ms.append(ms)
+                buckets_close = buckets_close and close
+                C, G, K = b_args[0].shape
+                print(f"search bucket [{name} @ {omega:g}] C={C} G={G} K={K}: "
+                      f"kernel vs plain on the card max_abs_err {err:.3g} "
+                      f"(tol {SWEEP_TOL:g} abs + rel) "
+                      f"{'ok' if close else 'MISMATCH'}", flush=True)
+            worst = max([worst] + bucket_errs)
             t0 = time.perf_counter()
             host = search_mod.search_mapping(dag, omega, lib, engine="numpy")
             numpy_s = time.perf_counter() - t0
@@ -502,11 +529,13 @@ def scheduler_phase(dev: torch.device):
                 == host.best.mapping.assignment,
                 "candidates": len(order), "bucket_sizes": ranked.bucket_sizes,
                 "launches": launches, "plan_wall_ms": plan_ms,
+                "max_abs_err_vs_plain_per_bucket": bucket_errs,
                 "numpy_host_ms": numpy_s * 1e3,
                 "max_stable_rate": ranked.best.max_stable_rate}
             searches.append(entry)
             ok = (entry["winner"] == host.best.name == ranked.best.name
                   and entry["rank_order_equal"] and entry["same_mapping"]
+                  and buckets_close and len(searched) == 1
                   and ranked.bucket_sizes == want_buckets
                   and launches == len(calls) == len(ranked.bucket_sizes))
             print(f"search [{name} @ {omega:g}]: plan in {plan_ms:.3f} ms "
@@ -521,6 +550,7 @@ def scheduler_phase(dev: torch.device):
                 fail(f"the kernel's search disagrees on {name} at {omega:g}")
             if (name, omega) == ("grid", 100.0):
                 grid_search_calls, grid_search_numpy_ms = calls, numpy_s * 1e3
+                grid_bucket_plain_ms = bucket_plain_ms
 
     # timing: the grid sweep, and the grid search's buckets
     args, kw = grid_args
@@ -533,18 +563,12 @@ def scheduler_phase(dev: torch.device):
         structure, args[0].cpu().numpy(), kw["steps"], kw["s0"],
         n_samples_of(kw["steps"], kw["sample_every"]))
     sweep_bound_ms, sweep_bound_by = bound(flops, nbytes, PEAK_FP64)
-    bucket_ms, bucket_plain_ms = [], []
-    for b_args, b_kw in grid_search_calls:
+    bucket_ms, bucket_plain_ms = [], grid_bucket_plain_ms
+    for b_args, b_kw, _ in grid_search_calls:
         _, by_k = device_ms(lambda: sweep_kernel.sweep_scan_fwd(*b_args,
                                                                 **b_kw),
                             iters=5)
         bucket_ms.append(sum(v for k, v in by_k.items() if "sweep_scan" in k))
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        sweep_scan_reference(*b_args, **b_kw)
-        end.record()
-        torch.cuda.synchronize()
-        bucket_plain_ms.append(start.elapsed_time(end))
     timing = {
         "grid_sweep": {
             "C": 1, "K": len(SWEEP_OMEGAS), "steps": kw["steps"],
@@ -555,7 +579,7 @@ def scheduler_phase(dev: torch.device):
             "thread_serial_ops": thread_ops,
             "kernel_ns_per_serial_op": sweep_ms * 1e6 / thread_ops},
         "grid_search_100": {
-            "buckets": [int(a[0].shape[0]) for a, _ in grid_search_calls],
+            "buckets": [int(a[0].shape[0]) for a, _, _ in grid_search_calls],
             "K": int(grid_search_calls[0][0][0].shape[2]),
             "steps": grid_search_calls[0][1]["steps"],
             "kernel_ms_per_bucket": bucket_ms,

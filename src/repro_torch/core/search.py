@@ -315,7 +315,7 @@ def evaluate_candidates(dag: Dataflow, alloc: Allocation,
                             else np.zeros(0, dtype=int))
             hops_b[j] = _hops_flat(gi)
         structure = get_scan_kernel(row_slices, in_edges, [sink_rows], s_pad,
-                                    batched=True, device=device)
+                                    device=device)
         q, busy, srv, realized, lat = run_sweep_kernel(
             structure, caps_b, src_rate, frac_b, slot_b, hops_b, steps=steps,
             sample_every=sample_every, s0=s0, dt=dt)

@@ -150,30 +150,26 @@ def _kernel_cache_collector(registry: "_obs_metrics.MetricsRegistry") -> None:
 _obs_metrics.register_collector(_kernel_cache_collector)
 
 
-def _kernel_key(row_slices, in_edges, sink_groups, n_slots: int,
-                batched: bool) -> tuple:
-    return (bool(batched), int(n_slots),
+def _kernel_key(row_slices, in_edges, sink_groups, n_slots: int) -> tuple:
+    return (int(n_slots),
             tuple((int(lo), int(hi)) for lo, hi in row_slices),
             tuple(tuple((int(s), float(m)) for s, m in e) for e in in_edges),
             tuple(tuple(int(r) for r in rows) for rows in sink_groups))
 
 
 def get_scan_kernel(row_slices, in_edges, sink_groups, n_slots: int,
-                    *, batched: bool = False,
-                    device: DeviceLike = None) -> SweepStructure:
+                    *, device: DeviceLike = None) -> SweepStructure:
     """The packed sweep structure for one spec structure on ``device``
-    (``None``: CUDA), from the module cache.  ``batched=True`` keys the
-    candidate-batched use of the mapper search apart, as the reference
-    keys its vmapped kernel; the structure itself is the same."""
+    (``None``: CUDA), from the module cache.  The reference keys its
+    vmapped kernel apart from the single one; here one kernel serves both
+    uses, so a sweep and a search of the same structure share one entry."""
     dev = resolve_device(device)
-    key = _kernel_key(row_slices, in_edges, sink_groups, n_slots,
-                      batched) + (str(dev),)
+    key = _kernel_key(row_slices, in_edges, sink_groups, n_slots) + (str(dev),)
     with _KERNEL_LOCK:
         structure = _KERNEL_CACHE.get(key)
         if structure is None:
             _KERNEL_STATS["misses"] += 1
-            with _obs_span("scan_kernel_compile", slots=int(n_slots),
-                           batched=bool(batched)):
+            with _obs_span("scan_kernel_compile", slots=int(n_slots)):
                 structure = pack_structure(row_slices, in_edges, sink_groups,
                                            n_slots, dev)
             _KERNEL_CACHE[key] = structure

@@ -179,8 +179,10 @@ def sweep_scan_reference(caps: torch.Tensor, src_rate: torch.Tensor,
     # reciprocal, which rounds differently from numpy's division
     dt_div = torch.tensor(dt, **f64)
     frac = g_frac[:, :, None]
-    # candidate c's slot s is row c * S + s of the flat busy: each slot's
-    # adds arrive in group order, as np.add.at makes them
+    # candidate c's slot s is row c * S + s of the flat busy.  On the CPU
+    # each slot's adds arrive in group order, as np.add.at makes them; on
+    # CUDA index_add_ scatters float64 by atomics in no fixed order, so
+    # there the sums agree with the kernel's only to rounding
     slot_rows = (g_slot.long() + S * torch.arange(C, device=caps.device)[:, None]
                  ).reshape(-1)
     for step in range(steps):
