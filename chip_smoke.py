@@ -51,10 +51,16 @@ Phases, each of which exits non-zero on failure:
    the shape buckets, the buckets are the reference's power-of-two ones,
    and every bucket's kernel outputs (candidates on the grid's y axis,
    padded groups) agree with the plain version on the same card tensors to
-   1e-10, field by field.  The kernel is timed by device time (profiler) at the grid sweep
-   and the grid search's buckets, beside the plain version's event time on
-   the same tensors and the numpy engine's host time; one
-   ``{"scheduler": ...}`` line carries it all.
+   1e-10, field by field.  Every sweep and bucket line carries the
+   kernel's launch shape (warps and dynamic shared memory per block, the
+   rows' skew, the waves) and the sweep lines its registers and spills
+   (ptxas) and its critical path in dependent float64 operations per tick
+   (``sweep_chain``: a wave's, and row after row's for comparison).  The
+   kernel is timed by device time (profiler) and CUDA events at the grid
+   sweep and the grid search's buckets, beside the plain version's event
+   time on the same tensors and the numpy engine's host time, with ns per
+   critical-path operation; one ``{"scheduler": ...}`` line carries it
+   all.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
@@ -324,34 +330,79 @@ def recorded_calls(module, name: str):
         setattr(module, name, original)
 
 
-def sweep_work(structure, caps: np.ndarray, steps: int, s0: int,
-               n_samples: int):
+def sweep_work(structure, caps: np.ndarray, counts: np.ndarray, steps: int,
+               s0: int, n_samples: int):
     """Least float64 operations and bytes of one sweep launch on this run's
-    data, and the operations one thread (one column) does in sequence.
-    Per tick and column: 2 per in-edge (multiply, add), 7 per group
-    (arrivals, their dt product, the queue add, cap dt, min, subtract, the
-    row sum) and a divide per row with groups; per window tick 1 per group
-    (served) and 2 per group with cap > 0 (divide, busy add); per sample 4
-    per group with cap > 0, 2 per in-edge, an add per row with in-edges and
-    the sink maxima.  Bytes: every input read once, every output written
-    once."""
+    data (real groups only: ``counts`` (C, T) per candidate), and the
+    operations of one column.  Per column: cap dt once per group; per tick
+    2 per in-edge (multiply, add), 6 per group (arrivals, their dt product,
+    the queue add, min, subtract, the row sum) and a divide per row with
+    groups; per window tick 1 per group (served) and 2 per group with
+    cap > 0 (divide, busy add); per sample 4 per group with cap > 0, 2 per
+    in-edge, an add per row with in-edges and the sink maxima.  Bytes:
+    every input read once, every output written once."""
     C, G, K = caps.shape
     rows, edges = structure.row_slices, structure.in_edges
     T, E, S, n_out = len(rows), structure.n_edges, structure.n_slots, \
         structure.n_out
     window = max(steps - s0, 0)
-    per_column = (steps * (2 * E + 7 * G + sum(hi > lo for lo, hi in rows))
-                  + window * G
+    live = counts.sum(axis=1)                        # real groups, (C,)
+    per_column = ((1 + 6 * steps + window) * live
+                  + steps * (2 * E + sum(hi > lo for lo, hi in rows))
                   + n_samples * (2 * E + sum(bool(e) for e in edges)
                                  + sum(max(len(r) - 1, 0)
                                        for r in structure.sink_groups)))
-    n_pos = int((caps > 0).sum())
-    flops = C * K * per_column + (2 * window + 4 * n_samples) * n_pos
+    real = np.zeros((C, G), dtype=bool)
+    for r, (lo, _) in enumerate(rows):
+        for c in range(C):
+            real[c, lo:lo + counts[c, r]] = True
+    n_pos = int(((caps > 0) & real[:, :, None]).sum())
+    flops = K * int(per_column.sum()) + (2 * window + 4 * n_samples) * n_pos
     n_sink_rows = sum(len(r) for r in structure.sink_groups)
-    nbytes = (8 * C * G * K + 8 * T * K + 12 * C * G + 8 * C * E
+    nbytes = (8 * C * G * K + 8 * T * K + 12 * C * G + 8 * C * E + 4 * C * T
               + 4 * (2 * (T + 1) + E + n_out + 1 + n_sink_rows) + 8 * E
               + 8 * C * K * (2 * G + S + T + n_samples * n_out))
-    return float(flops), float(nbytes), flops / (C * K)
+    return float(flops), float(nbytes), float(per_column.mean())
+
+
+def sweep_chain(structure, counts: np.ndarray, g_slot: np.ndarray) -> dict:
+    """Dependent float64 operations of one tick on the kernel's critical
+    path, for the candidate with the longest.  A row's chain: with in-edges
+    the first product and an add per edge; with groups the arrivals, their
+    dt product, the queue add, the min, an add per real group (the row's
+    ordered sum) and the divide's 5 (``div_by``).  The kernel's waves
+    advance every row by one tick, so a tick costs the longest row's chain
+    plus the busy walk of the slot with the most real groups (an add per
+    group): ``wave``.  A tick done row after row costs the sum of the rows'
+    chains: ``serial``, for comparison."""
+    rows = [(1 + len(e) if e else 0) for e in structure.in_edges]
+    spans = [hi > lo for lo, hi in structure.row_slices]
+    wave = serial = 0
+    for c, row in enumerate(counts):
+        chains = [edge + (9 + int(n) if has else 0)
+                  for edge, n, has in zip(rows, row, spans)]
+        slots = [int(g_slot[c, lo + j]) for (lo, _), n in
+                 zip(structure.row_slices, row) for j in range(int(n))]
+        walk = max(np.bincount(slots).max() if slots else 0, 0)
+        wave, serial = max(wave, max(chains) + walk), max(serial, sum(chains))
+    return {"wave": int(wave), "serial": int(serial)}
+
+
+def launch_report(sweep_kernel, args, kw) -> dict:
+    """The sweep kernel's launch shape for one call's inputs: warps per
+    block, the rows' skew, dynamic shared memory per block, blocks and
+    waves."""
+    caps, counts, structure = args[0], args[5], args[6]
+    C, G, K = caps.shape
+    T = structure.n_rows
+    warps, skew, nbytes = sweep_kernel.launch_shape(
+        G, structure.n_slots, T, structure.n_edges, structure.n_out,
+        int(structure.sink_rows.numel()), int(counts.sum(dim=1).max()), K,
+        kw["sample_every"])
+    steps = kw["steps"]
+    return {"warps_per_block": warps, "skew": skew,
+            "shared_bytes_per_block": nbytes, "blocks": -(-K // warps) * C,
+            "waves": steps + skew * (T - 1) if steps else 0}
 
 
 def pow2_buckets(search_mod, dag, alloc, lib, ranked) -> list:
@@ -403,6 +454,17 @@ def scheduler_phase(dev: torch.device):
     from repro_torch.kernels.sweep_scan.ref import (n_samples_of,
                                                     sweep_scan_reference)
 
+    # the sweep kernel's registers and spills, from ptxas (built in phase 2)
+    ptxas = [(fn, regs, st, ld) for fn, (regs, st, ld) in ptxas_report(
+        str(sweep_kernel.build()["ptxas"])).items() if "sweep" in fn]
+    if len(ptxas) != 1:
+        fail(f"ptxas reports {len(ptxas)} sweep kernel functions, expected 1")
+    fn_name, regs, spill_st, spill_ld = ptxas[0]
+    resources = {"function": fn_name, "registers": regs,
+                 "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
+    res_text = (f"{fn_name}: {regs} registers, spills {spill_st}/{spill_ld} "
+                "B (ptxas)")
+
     lib = paper_library()
     sims = {}
     for name in sorted(ALL_DAGS):
@@ -443,6 +505,9 @@ def scheduler_phase(dev: torch.device):
         same_verdicts = stable_k == [r.stable for r in res_n]
         msr = {e: sim.max_stable_rate(engine=e) for e in ("scan", "numpy")}
         spec = batch.spec
+        launch = launch_report(sweep_kernel, args, kw)
+        chain = sweep_chain(args[6], args[5].cpu().numpy(),
+                            args[3].cpu().numpy())
         sweeps[name] = {
             "T": spec.n_rows, "G": spec.n_groups, "S": len(spec.slots),
             "E": sum(len(e) for e in spec.in_edges),
@@ -453,7 +518,9 @@ def scheduler_phase(dev: torch.device):
             "stable_rates": int(sum(stable_k)),
             "verdicts_equal": same_verdicts,
             "max_stable_rate": msr["scan"],
-            "max_stable_rate_numpy": msr["numpy"]}
+            "max_stable_rate_numpy": msr["numpy"],
+            "chain_ops_per_tick": chain["wave"],
+            "serial_chain_ops_per_tick": chain["serial"], **launch}
         worst = max(worst, err_plain)
         ok = close_plain and close_numpy and same_verdicts and \
             msr["scan"] == msr["numpy"]
@@ -464,7 +531,12 @@ def scheduler_phase(dev: torch.device):
               f"the card {err_plain:.3g} (tol {SWEEP_TOL:g} abs "
               f"+ rel); stable {sum(stable_k)}/50, verdicts equal "
               f"{same_verdicts}; max_stable_rate {msr['scan']} (numpy "
-              f"{msr['numpy']}) {'ok' if ok else 'MISMATCH'}", flush=True)
+              f"{msr['numpy']}) {'ok' if ok else 'MISMATCH'}; "
+              f"{launch['warps_per_block']} warps/block, skew "
+              f"{launch['skew']}, {launch['waves']} waves, "
+              f"{launch['shared_bytes_per_block']} B shared/block, "
+              f"{chain['wave']} chain ops/tick ({chain['serial']} row after "
+              f"row), {res_text}", flush=True)
         if not ok:
             fail(f"the sweep kernel disagrees on {name}")
         if name == "grid":
@@ -510,10 +582,16 @@ def scheduler_phase(dev: torch.device):
                 bucket_plain_ms.append(ms)
                 buckets_close = buckets_close and close
                 C, G, K = b_args[0].shape
-                print(f"search bucket [{name} @ {omega:g}] C={C} G={G} K={K}: "
-                      f"kernel vs plain on the card max_abs_err {err:.3g} "
-                      f"(tol {SWEEP_TOL:g} abs + rel) "
-                      f"{'ok' if close else 'MISMATCH'}", flush=True)
+                launch = launch_report(sweep_kernel, b_args, b_kw)
+                real = int(b_args[5].sum())
+                print(f"search bucket [{name} @ {omega:g}] C={C} G={G} ({real}"
+                      f" real groups) K={K}: kernel vs plain on the card "
+                      f"max_abs_err {err:.3g} (tol {SWEEP_TOL:g} abs + rel) "
+                      f"{'ok' if close else 'MISMATCH'}; "
+                      f"{launch['warps_per_block']} warps/block, skew "
+                      f"{launch['skew']}, {launch['waves']} waves, "
+                      f"{launch['shared_bytes_per_block']} B shared/block",
+                      flush=True)
             worst = max([worst] + bucket_errs)
             t0 = time.perf_counter()
             host = search_mod.search_mapping(dag, omega, lib, engine="numpy")
@@ -556,19 +634,27 @@ def scheduler_phase(dev: torch.device):
     args, kw = grid_args
     total, by_kernel = device_ms(lambda: sweep_kernel.sweep_scan_fwd(*args,
                                                                      **kw))
-    sweep_ms = sum(v for k, v in by_kernel.items() if "sweep_scan" in k)
+    sweep_ms = sum(v for k, v in by_kernel.items() if "sweep" in k)
     sweep_event_ms = time_ms(lambda: sweep_kernel.sweep_scan_fwd(*args, **kw))
-    structure = args[5]
-    flops, nbytes, thread_ops = sweep_work(
-        structure, args[0].cpu().numpy(), kw["steps"], kw["s0"],
+    structure, counts = args[6], args[5].cpu().numpy()
+    flops, nbytes, column_ops = sweep_work(
+        structure, args[0].cpu().numpy(), counts, kw["steps"], kw["s0"],
         n_samples_of(kw["steps"], kw["sample_every"]))
+    grid_launch = launch_report(sweep_kernel, args, kw)
+    grid_chain = sweep_chain(structure, counts, args[3].cpu().numpy())
+    chain_ops = grid_chain["wave"] * grid_launch["waves"]
     sweep_bound_ms, sweep_bound_by = bound(flops, nbytes, PEAK_FP64)
-    bucket_ms, bucket_plain_ms = [], grid_bucket_plain_ms
+    bucket_ms, bucket_event_ms = [], []
+    bucket_plain_ms, bucket_chain = grid_bucket_plain_ms, []
     for b_args, b_kw, _ in grid_search_calls:
         _, by_k = device_ms(lambda: sweep_kernel.sweep_scan_fwd(*b_args,
                                                                 **b_kw),
                             iters=5)
-        bucket_ms.append(sum(v for k, v in by_k.items() if "sweep_scan" in k))
+        bucket_ms.append(sum(v for k, v in by_k.items() if "sweep" in k))
+        bucket_event_ms.append(time_ms(
+            lambda: sweep_kernel.sweep_scan_fwd(*b_args, **b_kw), iters=5))
+        bucket_chain.append(sweep_chain(b_args[6], b_args[5].cpu().numpy(),
+                                        b_args[3].cpu().numpy())["wave"])
     timing = {
         "grid_sweep": {
             "C": 1, "K": len(SWEEP_OMEGAS), "steps": kw["steps"],
@@ -576,14 +662,25 @@ def scheduler_phase(dev: torch.device):
             "plain_event_ms": grid_plain_ms, "numpy_host_ms": grid_numpy_ms,
             "bound_ms": sweep_bound_ms, "bound_by": sweep_bound_by,
             "flops": flops, "bytes": nbytes,
-            "thread_serial_ops": thread_ops,
-            "kernel_ns_per_serial_op": sweep_ms * 1e6 / thread_ops},
+            "column_ops": column_ops,
+            "kernel_ns_per_column_op": sweep_ms * 1e6 / column_ops,
+            "chain_ops_per_tick": grid_chain["wave"],
+            "serial_chain_ops_per_tick": grid_chain["serial"],
+            "chain_ops": chain_ops,
+            "kernel_ns_per_chain_op": sweep_ms * 1e6 / chain_ops,
+            **grid_launch, **resources},
         "grid_search_100": {
             "buckets": [int(a[0].shape[0]) for a, _, _ in grid_search_calls],
             "K": int(grid_search_calls[0][0][0].shape[2]),
             "steps": grid_search_calls[0][1]["steps"],
             "kernel_ms_per_bucket": bucket_ms,
             "kernel_ms": sum(bucket_ms),
+            "kernel_event_ms_per_bucket": bucket_event_ms,
+            "chain_ops_per_tick_per_bucket": bucket_chain,
+            "groups_per_bucket": [int(a[0].shape[1])
+                                  for a, _, _ in grid_search_calls],
+            "real_groups_per_bucket": [int(a[5].sum())
+                                       for a, _, _ in grid_search_calls],
             "plain_event_ms_per_bucket": bucket_plain_ms,
             "plain_event_ms": sum(bucket_plain_ms),
             "numpy_host_ms": grid_search_numpy_ms}}
@@ -593,11 +690,17 @@ def scheduler_phase(dev: torch.device):
           f"{grid_plain_ms:.6f} (events, 1 call); numpy engine "
           f"{grid_numpy_ms:.6f} (host); bound_ms {sweep_bound_ms:.6f} "
           f"({sweep_bound_by}; {flops:.4g} FP64 FLOP, {nbytes:.0f} B); "
-          f"{thread_ops:.0f} operations in sequence per thread, "
-          f"{sweep_ms * 1e6 / thread_ops:.3f} ns each", flush=True)
+          f"{column_ops:.0f} operations per column "
+          f"({sweep_ms * 1e6 / column_ops:.3f} ns each); critical path "
+          f"{grid_chain['wave']} dependent operations a wave ("
+          f"{grid_chain['serial']} a tick row after row) x "
+          f"{grid_launch['waves']} waves = {chain_ops}, "
+          f"{sweep_ms * 1e6 / chain_ops:.3f} ns each", flush=True)
     print(f"sweep timing at the grid search at 100 t/s (buckets "
           f"{timing['grid_search_100']['buckets']}), ms: kernel "
-          f"{sum(bucket_ms):.6f} (device, summed over buckets); plain on the "
+          f"{sum(bucket_ms):.6f} (device, summed over buckets: "
+          + " / ".join(f"{m:.6f}" for m in bucket_ms)
+          + f"; events {sum(bucket_event_ms):.6f}); plain on the "
           f"card {sum(bucket_plain_ms):.6f} (events); numpy engine search "
           f"{grid_search_numpy_ms:.6f} (host, whole search)", flush=True)
     print(json.dumps({"scheduler": {

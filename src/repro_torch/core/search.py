@@ -33,10 +33,10 @@ of candidates share one shape; the evaluator
 
 1. pads each candidate's per-row group counts and slot count up to
    powers of two and buckets candidates by the padded shape (padded groups
-   carry ``capacity = fraction = 0`` so they are exact no-ops in the
-   kernel),
+   carry ``capacity = fraction = 0`` so they are exact no-ops; the kernel
+   skips them, walking only each candidate's real groups per row),
 2. stacks each bucket's per-candidate arrays (capacities, fractions, slot
-   ids, hops) on a leading candidate axis, and
+   ids, hops, real groups per row) on a leading candidate axis, and
 3. runs the whole bucket through ONE launch of the sweep kernel
    (:mod:`repro_torch.kernels.sweep_scan`) with a leading candidate axis,
    its structure packed once per bucket shape and device in the
@@ -299,6 +299,7 @@ def evaluate_candidates(dag: Dataflow, alloc: Allocation,
         frac_b = np.zeros((C, g_pad))
         slot_b = np.zeros((C, g_pad), dtype=np.int32)
         hops_b = np.zeros((C, sum(len(e) for e in in_edges)))
+        counts_b = np.zeros((C, len(pad_counts)), dtype=np.int32)
         real_idx: List[np.ndarray] = []
         for j, i in enumerate(idxs):
             gi = gis[i]
@@ -311,14 +312,15 @@ def evaluate_candidates(dag: Dataflow, alloc: Allocation,
                 caps_b[j, dst, :] = caps[lo:hi]
                 frac_b[j, dst] = gi.g_frac[lo:hi]
                 slot_b[j, dst] = gi.g_slot[lo:hi]
+                counts_b[j, r] = hi - lo
             real_idx.append(np.concatenate(dsts).astype(int) if dsts
                             else np.zeros(0, dtype=int))
             hops_b[j] = _hops_flat(gi)
         structure = get_scan_kernel(row_slices, in_edges, [sink_rows], s_pad,
                                     device=device)
         q, busy, srv, realized, lat = run_sweep_kernel(
-            structure, caps_b, src_rate, frac_b, slot_b, hops_b, steps=steps,
-            sample_every=sample_every, s0=s0, dt=dt)
+            structure, caps_b, src_rate, frac_b, slot_b, hops_b, counts_b,
+            steps=steps, sample_every=sample_every, s0=s0, dt=dt)
         for j, i in enumerate(idxs):
             ri = real_idx[j]
             n_slots = len(gis[i].slots)

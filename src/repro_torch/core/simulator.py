@@ -180,13 +180,14 @@ def get_scan_kernel(row_slices, in_edges, sink_groups, n_slots: int,
 
 def run_sweep_kernel(structure: SweepStructure, caps: np.ndarray,
                      src_rate: np.ndarray, g_frac: np.ndarray,
-                     g_slot: np.ndarray, hops: np.ndarray, *, steps: int,
-                     sample_every: int, s0: int, dt: float
+                     g_slot: np.ndarray, hops: np.ndarray, counts: np.ndarray,
+                     *, steps: int, sample_every: int, s0: int, dt: float
                      ) -> Tuple[np.ndarray, ...]:
     """One launch of the sweep engine on the structure's device: caps (C, G,
-    K), src_rate (T, K), g_frac/g_slot (C, G) and hops (C, E) cross over
-    as numpy arrays and (queues, busy, served, realized, latency) come back
-    as numpy arrays with the leading candidate axis."""
+    K), src_rate (T, K), g_frac/g_slot (C, G), hops (C, E) and the real
+    groups per row, counts (C, T), cross over as numpy arrays and (queues,
+    busy, served, realized, latency) come back as numpy arrays with the
+    leading candidate axis."""
     dev = structure.row_off.device
 
     def put(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -196,8 +197,8 @@ def run_sweep_kernel(structure: SweepStructure, caps: np.ndarray,
     out = _sweep_ops.sweep_scan(
         put(caps, torch.float64), put(src_rate, torch.float64),
         put(g_frac, torch.float64), put(g_slot, torch.int32),
-        put(hops, torch.float64), structure, steps=steps,
-        sample_every=sample_every, s0=s0, dt=dt)
+        put(hops, torch.float64), put(counts, torch.int32), structure,
+        steps=steps, sample_every=sample_every, s0=s0, dt=dt)
     return tuple(t.cpu().numpy() for t in out)
 
 
@@ -597,9 +598,10 @@ class SweepBatch:
         structure = get_scan_kernel(spec.row_slices, spec.in_edges,
                                     spec.sink_groups, len(spec.slots),
                                     device=device)
+        counts = np.array([[hi - lo for lo, hi in spec.row_slices]])
         out = run_sweep_kernel(structure, caps[None], src_rate,
                                spec.g_frac[None], spec.g_slot[None],
-                               self._hops_flat[None], steps=steps,
+                               self._hops_flat[None], counts, steps=steps,
                                sample_every=sample_every, s0=s0, dt=dt)
         return tuple(a[0] for a in out)
 

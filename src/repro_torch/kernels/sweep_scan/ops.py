@@ -1,8 +1,8 @@
 """The sweep engine, dispatched on the tensors' device.
 
-``sweep_scan(caps, src_rate, g_frac, g_slot, hops, structure, steps=...,
-sample_every=..., s0=..., dt=...)`` runs every tick of a rate sweep of C
-candidate mappings (shapes in :mod:`.ref`):
+``sweep_scan(caps, src_rate, g_frac, g_slot, hops, counts, structure,
+steps=..., sample_every=..., s0=..., dt=...)`` runs every tick of a rate
+sweep of C candidate mappings (shapes in :mod:`.ref`):
 
 * on CUDA tensors it launches the hand-written Hopper kernel
   (:mod:`.kernel`) or raises;
@@ -21,11 +21,11 @@ from .ref import SweepOutputs, SweepStructure, sweep_scan_reference
 
 def sweep_scan(caps: torch.Tensor, src_rate: torch.Tensor,
                g_frac: torch.Tensor, g_slot: torch.Tensor, hops: torch.Tensor,
-               structure: SweepStructure, *, steps: int, sample_every: int,
-               s0: int, dt: float) -> SweepOutputs:
+               counts: torch.Tensor, structure: SweepStructure, *, steps: int,
+               sample_every: int, s0: int, dt: float) -> SweepOutputs:
     """(queues, busy, served, realized, latency), each with a leading
     candidate axis, in float64 on the inputs' device."""
-    args = (caps, src_rate, g_frac, g_slot, hops, structure)
+    args = (caps, src_rate, g_frac, g_slot, hops, counts, structure)
     kw = dict(steps=steps, sample_every=sample_every, s0=s0, dt=dt)
     if caps.device.type == "cuda":
         return kernel.sweep_scan_fwd(*args, **kw)

@@ -12,6 +12,13 @@ The structure of a sweep (which groups belong to which task row, the
 in-edges, the sink rows of each output) is packed once by
 :func:`pack_structure` into a :class:`SweepStructure` on the device: CSR
 index arrays for the kernel, and the same lists for this plain version.
+
+Each candidate also names its real groups per row, ``counts`` (C, T): the
+first ``counts[c, r]`` groups of row r's span are real, the rest are the
+padding of a search's shape bucket; in a plain sweep every group is real
+(:func:`full_counts`).  Groups past the count take no part: they read as
+cap = frac = 0, which is what a search pads with, so skipping them is
+exact.
 """
 
 from __future__ import annotations
@@ -123,10 +130,31 @@ def n_samples_of(steps: int, sample_every: int) -> int:
     return -(-steps // sample_every) if steps > 0 else 0
 
 
+def row_sizes(structure: SweepStructure) -> torch.Tensor:
+    """(T,) int32 groups in each row's span."""
+    return (structure.row_off[1:] - structure.row_off[:-1]).to(torch.int32)
+
+
+def full_counts(structure: SweepStructure, n_candidates: int) -> torch.Tensor:
+    """(C, T) int32 counts that make every group real: a plain sweep's."""
+    return row_sizes(structure).expand(n_candidates, -1).contiguous()
+
+
+def live_groups(structure: SweepStructure, counts: torch.Tensor
+                ) -> torch.Tensor:
+    """(C, G) bool: group g of row r is real for candidate c when it is
+    among the first ``counts[c, r]`` groups of the row's span."""
+    g_task = structure.g_task
+    first = structure.row_off[:-1].long()[g_task]
+    pos = torch.arange(structure.n_groups, device=g_task.device) - first
+    return pos[None, :] < counts.long()[:, g_task]
+
+
 def check_sweep_shapes(caps: torch.Tensor, src_rate: torch.Tensor,
                        g_frac: torch.Tensor, g_slot: torch.Tensor,
-                       hops: torch.Tensor, structure: SweepStructure,
-                       steps: int, sample_every: int, s0: int
+                       hops: torch.Tensor, counts: torch.Tensor,
+                       structure: SweepStructure, steps: int,
+                       sample_every: int, s0: int
                        ) -> Tuple[int, int, int, int, int, int, int]:
     """(C, T, G, S, n_out, K, n_samples) of a sweep; raises ValueError on
     shapes that disagree with each other or with the structure."""
@@ -136,12 +164,13 @@ def check_sweep_shapes(caps: torch.Tensor, src_rate: torch.Tensor,
     T, E, S = structure.n_rows, structure.n_edges, structure.n_slots
     if (G != structure.n_groups or src_rate.shape != (T, K)
             or g_frac.shape != (C, G) or g_slot.shape != (C, G)
-            or hops.shape != (C, E)):
+            or hops.shape != (C, E) or counts.shape != (C, T)):
         raise ValueError(
             f"bad shapes caps{tuple(caps.shape)} src_rate"
             f"{tuple(src_rate.shape)} g_frac{tuple(g_frac.shape)} g_slot"
-            f"{tuple(g_slot.shape)} hops{tuple(hops.shape)} for T={T}, "
-            f"G={structure.n_groups}, E={E}")
+            f"{tuple(g_slot.shape)} hops{tuple(hops.shape)} counts"
+            f"{tuple(counts.shape)} for T={T}, G={structure.n_groups}, "
+            f"E={E}")
     if C < 1 or K < 1:
         raise ValueError(f"a sweep needs C >= 1 and K >= 1, got C={C}, K={K}")
     if steps < 0 or sample_every < 1 or s0 < 0:
@@ -150,21 +179,27 @@ def check_sweep_shapes(caps: torch.Tensor, src_rate: torch.Tensor,
                          "s0 >= 0")
     if G and bool(((g_slot < 0) | (g_slot >= S)).any()):
         raise ValueError(f"g_slot holds a slot outside 0..{S - 1}")
+    if bool(((counts < 0) | (counts > row_sizes(structure))).any()):
+        raise ValueError("counts must lie in 0..the row's group span")
     return (int(C), T, int(G), S, structure.n_out, int(K),
             n_samples_of(steps, sample_every))
 
 
 def sweep_scan_reference(caps: torch.Tensor, src_rate: torch.Tensor,
                          g_frac: torch.Tensor, g_slot: torch.Tensor,
-                         hops: torch.Tensor, structure: SweepStructure, *,
-                         steps: int, sample_every: int, s0: int,
+                         hops: torch.Tensor, counts: torch.Tensor,
+                         structure: SweepStructure, *, steps: int,
+                         sample_every: int, s0: int,
                          dt: float) -> SweepOutputs:
     """The sweep of C candidates, float64, in the numpy engine's order of
     operations.  Shapes as :func:`repro_torch.kernels.sweep_scan.kernel.
-    sweep_scan_fwd`."""
+    sweep_scan_fwd`; groups past ``counts`` read as cap = frac = 0."""
     C, T, G, S, n_out, K, n_samples = check_sweep_shapes(
-        caps, src_rate, g_frac, g_slot, hops, structure, steps, sample_every,
-        s0)
+        caps, src_rate, g_frac, g_slot, hops, counts, structure, steps,
+        sample_every, s0)
+    live = live_groups(structure, counts)
+    caps = torch.where(live[:, :, None], caps, 0.0)
+    g_frac = torch.where(live, g_frac, 0.0)
     f64 = dict(dtype=torch.float64, device=caps.device)
     queues = torch.zeros((C, G, K), **f64)
     busy = torch.zeros((C * S, K), **f64)

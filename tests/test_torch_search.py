@@ -12,8 +12,13 @@ forms (``search.py:281-290``, recomputed here from the reference's own
 group indices: its ``vmap`` engine itself needs
 ``jax.experimental.enable_x64``, which the installed JAX lacks).
 
-The ``cuda`` test holds the kernel's candidate batches against the plain
-version; it runs on the card with ``--noconftest -m cuda``.
+The plain version given each candidate's real groups per row must equal
+the plain version walking every padded group, on a padded bucket of each
+DAG's search: the kernel's skip of the padding is exact.
+
+The ``cuda`` tests hold the kernel's candidate batches, and the buckets at
+the shapes that stress its warp-per-column design, against the plain
+version; they run on the card with ``--noconftest -m cuda``.
 """
 
 import numpy as np
@@ -28,6 +33,10 @@ from repro_torch.core import search as port_search
 from repro_torch.core import simulator as port_sim
 from repro_torch.core.mapping import make_threads
 from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
+from repro_torch.kernels.sweep_scan import ops as sweep_ops
+from repro_torch.kernels.sweep_scan.ref import (full_counts, live_groups,
+                                                pack_structure,
+                                                sweep_scan_reference)
 
 RAW_FIELDS = ("queues", "busy", "served", "realized", "latency")
 POLICIES = [p.value for p in port.RoutingPolicy]
@@ -39,6 +48,52 @@ TOL = 1e-10
 @pytest.fixture(scope="module")
 def libs():
     return port.paper_library(), ref.paper_library()
+
+
+@pytest.fixture(scope="module")
+def buckets(libs):
+    """Per DAG, the arguments of every bucket its search launches (4 s at
+    dt 0.1, the window from tick 25, on the CPU): ((structure, caps,
+    src_rate, g_frac, g_slot, hops, counts), tick keywords)."""
+    calls, original = [], port_search.run_sweep_kernel
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return original(*args, **kw)
+
+    out = {}
+    port_search.run_sweep_kernel = record
+    try:
+        for dag in sorted(port.ALL_DAGS):
+            calls.clear()
+            port.search_mapping(port.ALL_DAGS[dag](), 100, libs[0],
+                                device="cpu", **TINY)
+            out[dag] = list(calls)
+    finally:
+        port_search.run_sweep_kernel = original
+    return out
+
+
+def bucket_tensors(args, device):
+    """A recorded bucket as the sweep engine's tensors on ``device``: the
+    inputs in call order, then the structure."""
+    structure, caps, src, frac, slot, hops, counts = args
+    f64, i32 = torch.float64, torch.int32
+    tensors = [torch.as_tensor(np.ascontiguousarray(a), dtype=t,
+                               device=device)
+               for a, t in ((caps, f64), (src, f64), (frac, f64),
+                            (slot, i32), (hops, f64), (counts, i32))]
+    return tensors, pack_structure(structure.row_slices, structure.in_edges,
+                                   structure.sink_groups, structure.n_slots,
+                                   device)
+
+
+def most_padded(calls):
+    """The recorded bucket with the most padded groups."""
+    def padding(call):
+        structure, caps, *_, counts = call[0]
+        return caps.shape[0] * structure.n_groups - int(counts.sum())
+    return max(calls, key=padding)
 
 
 @pytest.fixture(scope="module")
@@ -264,6 +319,94 @@ def test_search_without_cuda_raises_by_default(libs, monkeypatch):
     with pytest.raises(ValueError, match="unknown candidate-evaluation"):
         port.search_mapping(port.ALL_DAGS["linear"](), 100, lib,
                             engine="scan", **SMALL_SEARCH)
+
+
+@pytest.mark.parametrize("dag", sorted(port.ALL_DAGS))
+def test_plain_version_skips_padding_exactly(buckets, dag):
+    """On the DAG's most padded bucket: the plain version given each
+    candidate's real groups per row equals it walking every padded group
+    (cap = frac = 0), bit for bit, and ignores what the padding holds."""
+    args, kw = most_padded(buckets[dag])
+    tensors, structure = bucket_tensors(args, torch.device("cpu"))
+    counts = tensors[5]
+    full = full_counts(structure, counts.shape[0])
+    assert bool((counts < full).any()) and kw["s0"] < kw["steps"]
+    skip = sweep_scan_reference(*tensors, structure, **kw)
+    walk = sweep_scan_reference(*tensors[:5], full, structure, **kw)
+    live = live_groups(structure, counts)
+    noisy = list(tensors)
+    noisy[0] = torch.where(live[:, :, None], noisy[0], 3.0)
+    noisy[2] = torch.where(live, noisy[2], 0.25)
+    assert not torch.equal(noisy[0], tensors[0])
+    for f, a, b, c in zip(RAW_FIELDS, skip, walk,
+                          sweep_scan_reference(*noisy, structure, **kw)):
+        assert torch.equal(a, b), f
+        assert torch.equal(a, c), f
+
+
+def edge_case(buckets, case):
+    """(bucket arguments, tick keywords) of one stress shape of the
+    warp-per-column kernel, and a check that the bucket has that shape."""
+    if case == "rows_over_a_warp":     # grid at 100 t/s, rows padded to 64
+        args, kw = max(buckets["grid"], key=lambda c: c[0][1].shape[1])
+        assert int(args[6].max()) > 32
+    elif case == "slot_of_several_rows":
+        args, kw = buckets["diamond"][0]
+        structure, slot, counts = args[0], args[4], args[6]
+        rows = {}
+        for r, (lo, hi) in enumerate(structure.row_slices):
+            for g in range(lo, lo + int(counts[0, r])):
+                rows.setdefault(int(slot[0, g]), set()).add(r)
+        assert max(len(v) for v in rows.values()) > 1
+    elif case == "k_not_a_multiple_of_warps":
+        args, kw = buckets["finance"][0]
+        assert args[1].shape[2] % sweep_kernel.MAX_WARPS != 0
+    elif case == "padded_candidates":
+        args, kw = most_padded(buckets["traffic"])
+        structure, counts = args[0], args[6]
+        assert counts.shape[0] > 1 and int(counts.sum()) < \
+            counts.shape[0] * structure.n_groups
+    elif case == "sample_every_1":
+        args, kw = buckets["traffic"][0]
+        kw = dict(kw, sample_every=1)
+    elif case == "samples_off_the_wave":   # rings too deep for skew 5
+        args, kw = max(buckets["grid"], key=lambda c: c[0][1].shape[1])
+        kw = dict(kw, sample_every=5)
+        structure, caps, counts = args[0], args[1], args[6]
+        assert sweep_kernel.launch_shape(
+            structure.n_groups, structure.n_slots, structure.n_rows,
+            structure.n_edges, structure.n_out, len(structure.sink_rows),
+            int(counts.sum(axis=1).max()), caps.shape[2], 5)[1] == 1
+    else:                               # "s0_past_steps"
+        args, kw = buckets["star"][0]
+        kw = dict(kw, s0=kw["steps"] + 3)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "rows_over_a_warp", "slot_of_several_rows", "k_not_a_multiple_of_warps",
+    "padded_candidates", "sample_every_1", "samples_off_the_wave",
+    "s0_past_steps"])
+def test_cuda_kernel_matches_plain_at_stress_shapes(buckets, case):
+    """One launch at each stress shape, every field within 1e-10 of the
+    plain version on the same card tensors; the padding holds garbage the
+    kernel must skip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    args, kw = edge_case(buckets, case)
+    tensors, structure = bucket_tensors(args, torch.device("cuda"))
+    live = live_groups(structure, tensors[5])
+    tensors[0] = torch.where(live[:, :, None], tensors[0], 3.0)
+    tensors[2] = torch.where(live, tensors[2], 0.25)
+    before = sweep_kernel.launch_count()
+    got = sweep_ops.sweep_scan(*tensors, structure, **kw)
+    torch.cuda.synchronize()
+    assert sweep_kernel.launch_count() == before + 1
+    want = sweep_scan_reference(*tensors, structure, **kw)
+    for f, x, y in zip(RAW_FIELDS, got, want):
+        assert x.shape == y.shape, f
+        torch.testing.assert_close(x, y, rtol=TOL, atol=TOL, msg=f)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,8 @@ card at the same tolerance; the GPU machine has no JAX, so they run there
 with ``--noconftest -m cuda`` (``repro.core`` itself loads without JAX).
 """
 
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -28,7 +30,7 @@ from repro_torch.core import simulator as port_sim
 from repro_torch.core.predictor import effective_capacity_matrix
 from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
 from repro_torch.kernels.sweep_scan import ops as sweep_ops
-from repro_torch.kernels.sweep_scan.ref import (pack_structure,
+from repro_torch.kernels.sweep_scan.ref import (full_counts, pack_structure,
                                                 sweep_scan_reference)
 
 RAW_FIELDS = ("queues", "busy", "served", "realized", "latency")
@@ -253,7 +255,8 @@ def test_unknown_engine_and_device_rejected(libs):
     args = (torch.ones((1, 1, 1), dtype=torch.float64, device="meta"),) + \
         tuple(torch.zeros(shape, dtype=dt, device="meta") for shape, dt in (
             ((1, 1), torch.float64), ((1, 1), torch.float64),
-            ((1, 1), torch.int32), ((1, 0), torch.float64)))
+            ((1, 1), torch.int32), ((1, 0), torch.float64),
+            ((1, 1), torch.int32)))
     with pytest.raises(ValueError, match="cuda or cpu"):
         sweep_ops.sweep_scan(*args, structure, steps=1, sample_every=1, s0=0,
                              dt=0.1)
@@ -277,6 +280,141 @@ def test_pack_structure_checks_the_structure():
     assert s.g_task.tolist() == [0, 0, 2]
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_slot_index_keeps_group_order_within_each_slot(seed):
+    """The busy scatter's index: each slot's live groups in ascending group
+    order (np.add.at's order), groups that are not live past the last
+    slot."""
+    rng = np.random.default_rng(seed)
+    C, G, S = 4, 75, 9
+    g_slot = torch.as_tensor(rng.integers(0, S, (C, G)), dtype=torch.int32)
+    live = torch.as_tensor(rng.random((C, G)) < 0.8)
+    off, grp = sweep_kernel.slot_index(g_slot, live, S)
+    assert off.dtype == grp.dtype == torch.int32
+    assert off.shape == (C, S + 1) and grp.shape == (C, G)
+    for c in range(C):
+        for s in range(S):
+            assert grp[c, off[c, s]:off[c, s + 1]].tolist() == [
+                g for g in range(G) if live[c, g] and g_slot[c, g] == s]
+        assert int(off[c, S]) == int(live[c].sum())
+        assert sorted(grp[c].tolist()) == list(range(G))
+
+
+@pytest.mark.parametrize("G, S, T, E, L, K, every, warps, skew", [
+    (47, 39, 17, 21, 47, 50, 5, 3, 5),       # the grid sweep
+    (296, 64, 17, 21, 200, 11, 2, 1, 2),     # the grid search's widest bucket
+    (8, 4, 7, 6, 8, 3, 2, 3, 2),             # fewer columns than warps
+    (47, 39, 17, 21, 47, 50, 1, 4, 1),       # a sample every tick
+    (47, 39, 17, 21, 47, 50, 100, 4, 1),     # rings too deep to align samples
+    (300, 64, 17, 21, 300, 50, 40, 2, 1),    # skew 1, three columns do not fit
+    (600, 64, 17, 21, 400, 50, 40, 1, 1),    # one column only
+])
+def test_launch_shape_fits_the_block(G, S, T, E, L, K, every, warps, skew):
+    got = sweep_kernel.launch_shape(G, S, T, E, 1, 1, L, K, every)
+    assert got[:2] == (warps, skew)
+    assert got[2] == sweep_kernel.shared_bytes(G, S, T, E, 1, 1, L, skew,
+                                               warps)
+    assert got[2] <= sweep_kernel.MAX_SHARED_BYTES
+    if skew < every:
+        assert sweep_kernel.shared_bytes(G, S, T, E, 1, 1, L, every, 1) > \
+            sweep_kernel.MAX_SHARED_BYTES
+    if warps < min(sweep_kernel.MAX_WARPS, K):
+        assert sweep_kernel.shared_bytes(G, S, T, E, 1, 1, L, skew,
+                                         warps + 1) > \
+            sweep_kernel.MAX_SHARED_BYTES
+
+
+def test_launch_shape_raises_when_one_column_does_not_fit():
+    """A structure whose single rate column's state exceeds the 227 KB a
+    block can have, even at skew 1, is refused with the bytes it needs."""
+    G, S, T, E, L = 1200, 64, 17, 21, 800
+    assert sweep_kernel.shared_bytes(G, S, T, E, 1, 1, L, 1, 1) > \
+        sweep_kernel.MAX_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep_kernel.launch_shape(G, S, T, E, 1, 1, L, 50, 5)
+
+
+@pytest.mark.parametrize("n, depth", [(1, 1), (2, 2), (7, 8), (16, 16),
+                                      (17, 32), (81, 128)])
+def test_ring_depth_is_the_least_power_of_two(n, depth):
+    assert sweep_kernel.ring_depth(n) == depth
+
+
+def test_kernel_needs_rows_in_topological_order():
+    """The wavefront reads a source row's rate of the same tick, so an
+    in-edge from the same or a later row is refused; the seed DAGs' specs
+    pass."""
+    cpu = torch.device("cpu")
+    sweep_kernel.check_row_order(pack_structure(
+        [(0, 1), (1, 2), (2, 3)], [[], [(0, 1.0)], [(0, 1.0), (1, 2.0)]],
+        [[2]], 1, cpu))
+    with pytest.raises(ValueError, match="topological"):
+        sweep_kernel.check_row_order(pack_structure(
+            [(0, 1), (1, 2)], [[(1, 1.0)], []], [[0]], 1, cpu))
+    with pytest.raises(ValueError, match="topological"):
+        sweep_kernel.check_row_order(pack_structure(
+            [(0, 1), (1, 2)], [[], [(1, 1.0)]], [[1]], 1, cpu))
+
+
+@pytest.mark.parametrize("dag", DAGS)
+def test_seed_specs_are_in_topological_order(libs, dag):
+    ours, _ = _sims(libs, dag)
+    spec = port.SweepBatch([ours]).spec
+    sweep_kernel.check_row_order(pack_structure(
+        spec.row_slices, spec.in_edges, spec.sink_groups, len(spec.slots),
+        torch.device("cpu")))
+
+
+def _fma(x: float, y: float, z: float) -> float:
+    """x * y + z rounded once, as the card's FMA rounds it."""
+    return float(Fraction(x) * Fraction(y) + Fraction(z))
+
+
+def _div_by(a: float, b: float) -> float:
+    """``sweep_scan.cu::div_by`` on the fast path: y = RN(1/b), q = RN(a y)
+    and two corrections q += (a - b q) y, each an FMA."""
+    y = float(1 / Fraction(b))
+    q = a * y
+    q = _fma(_fma(-b, q, a), y, q)
+    return _fma(_fma(-b, q, a), y, q)
+
+
+@pytest.mark.parametrize("seed, divisor", enumerate([
+    0.05, 0.1, 0.25, 0.3, 1 / 3, 7.0, 123.456, 2 - 2 ** -50, "random"]))
+def test_reciprocal_division_rounds_correctly(seed, divisor):
+    """The kernel divides by dt and by caps through the divisor's
+    reciprocal and two exact FMA corrections; the quotient must be the
+    correctly rounded one numpy's division gives, here against exact
+    rational arithmetic: random numerators over 80 binades, numerators of
+    quotients that sit half an ulp from a double, and integer-like ones."""
+    rng = np.random.default_rng(seed)
+    for i in range(3000):
+        b = divisor if divisor != "random" else float(
+            np.ldexp(1 + rng.random(), int(rng.integers(-40, 40))))
+        a = float(np.ldexp(1 + rng.random(), int(rng.integers(-40, 40))))
+        if i % 3 == 1:   # the quotient half an ulp above a double
+            q = float(Fraction(a) / Fraction(b))
+            a = float((Fraction(q) + Fraction(np.spacing(q)) / 2)
+                      * Fraction(b))
+        elif i % 3 == 2:
+            a = float(rng.integers(0, 10 ** 6)) * 10.0 ** int(
+                rng.integers(-6, 4))
+        assert _div_by(a, b) == float(Fraction(a) / Fraction(b)), (a, b)
+
+
+def test_plain_version_rejects_bad_counts():
+    s = pack_structure([(0, 2), (2, 3)], [[], [(0, 1.0)]], [[1]], 1,
+                       torch.device("cpu"))
+    f64 = dict(dtype=torch.float64)
+    args = (torch.ones((1, 3, 2), **f64), torch.ones((2, 2), **f64),
+            torch.ones((1, 3), **f64), torch.zeros((1, 3), dtype=torch.int32),
+            torch.zeros((1, 1), **f64))
+    for counts in ([[3, 1]], [[-1, 1]], [[2, 1, 0]]):
+        with pytest.raises(ValueError, match="counts"):
+            sweep_scan_reference(*args, torch.tensor(counts, dtype=torch.int32),
+                                 s, steps=2, sample_every=1, s0=0, dt=0.1)
+
+
 def test_plain_version_rejects_out_of_range_slots():
     s = pack_structure([(0, 1)], [[]], [[0]], 1, torch.device("cpu"))
     f64 = dict(dtype=torch.float64)
@@ -285,8 +423,8 @@ def test_plain_version_rejects_out_of_range_slots():
                              torch.ones((1, 2), **f64),
                              torch.ones((1, 1), **f64),
                              torch.full((1, 1), 3, dtype=torch.int32),
-                             torch.zeros((1, 0), **f64), s, steps=2,
-                             sample_every=1, s0=0, dt=0.1)
+                             torch.zeros((1, 0), **f64), full_counts(s, 1),
+                             s, steps=2, sample_every=1, s0=0, dt=0.1)
 
 
 # -- on the card: the CUDA kernel against its plain version --------------------
@@ -311,7 +449,7 @@ def test_cuda_kernel_matches_plain(libs, dag):
     structure = pack_structure(spec.row_slices, spec.in_edges,
                                spec.sink_groups, len(spec.slots), dev)
     tensors = [torch.as_tensor(np.ascontiguousarray(a), dtype=t, device=dev)
-               for a, t in args]
+               for a, t in args] + [full_counts(structure, 1)]
     before = sweep_kernel.launch_count()
     got = sweep_ops.sweep_scan(*tensors, structure, **kw)
     torch.cuda.synchronize()
