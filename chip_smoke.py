@@ -60,7 +60,27 @@ Phases, each of which exits non-zero on failure:
    sweep and the grid search's buckets, beside the plain version's event
    time on the same tensors and the numpy engine's host time, with ns per
    critical-path operation; one ``{"scheduler": ...}`` line carries it
-   all.
+   all.  One untimed sweep runs first, so that every timed one is warm;
+8. fleet: ``plan_fleet`` (max_min, sam) on ``benchmarks/bench_fleet.py``'s
+   cycled seed DAGs at 2, 3, 4 and 6 DAGs (budgets 16, 32, 64, 64), at 8
+   and 12 (96, 128) and at 24 (256: its state no longer fits a block's
+   shared memory), each co-simulated once by ``simulate_fleet`` on the
+   sweep kernel (after one untimed warm-up co-simulation), with the launch
+   count set to 0 just before and read just after (exactly one launch):
+   every ``SweepRaw`` field, each DAG's actual max stable and predicted
+   max rate and verdicts, slot busy and per-VM CPU and memory agree with
+   ``engine="numpy"`` to 1e-10, and the kernel's outputs with its plain
+   version on the same card tensors to 1e-13 (abs + rel).  Each fleet's
+   line gives T, G, S, L, the launch shape (warps, skew, the longest
+   DAG's rows that set the lag, waves, bytes a block and whether they sit
+   in shared or device memory), the kernel's and numpy's wall ms and the
+   kernel's device ms beside its bound.
+   Then ``benchmarks/bench_online.py``'s 20-event day (budget 44, sam,
+   step 2) is replayed through ``FleetController.replay(simulate=True)`` on
+   the kernel and on numpy: the per-event planned rates and stable verdicts
+   must be equal, and the launches equal the co-simulations that ran; one
+   ``cosimulate(prove=True)`` prints its engine and proved verdicts.  One
+   ``{"fleet": ...}`` line carries it all.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
@@ -71,6 +91,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import itertools
 import json
 import pathlib
 import re
@@ -127,11 +148,13 @@ def toolkit_tool(name: str):
 
 def kernel_label(demangled: str) -> str:
     """``name<template args>`` of a demangled kernel symbol, without its
-    return type, anonymous namespace, argument list or integer casts:
+    return type, anonymous namespace, argument list or integer casts, bool
+    arguments spelt false / true:
     "void (anonymous namespace)::f<float, (int)64>(float const*, ...)" ->
     "f<float,64>"."""
     name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::"
                   r"|\((?:unsigned )?(?:int|long|short|char)\)", "", demangled)
+    name = name.replace("(bool)0", "false").replace("(bool)1", "true")
     depth = 0
     for at, c in enumerate(name):
         depth += (c == "<") - (c == ">")
@@ -188,30 +211,51 @@ def sass_hmma_counts(library: str):
     return dict(zip(demangle(symbols), counts))
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3):
+def device_ms(fn, iters: int = 20, warmup: int = 3, required: bool = True):
     """Device time per call: the summed duration of the device kernels that
     ``iters`` calls launch, from torch.profiler, over ``iters``; and that
-    time split by kernel label."""
+    time split by kernel label.  A trace that shows no device kernel is
+    taken once more; if that one shows none either, the events it did see
+    are counted by device type, and the call fails, or with ``required``
+    off returns (None, {})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = kernel_label(e.name)
-            by_kernel[name] = (by_kernel.get(name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / iters)
-    if not by_kernel:
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel: dict = {}
+        kinds: dict = {}
+        for e in prof.events():
+            kinds[str(e.device_type)] = kinds.get(str(e.device_type), 0) + 1
+            if e.device_type == DeviceType.CUDA:
+                name = kernel_label(e.name)
+                by_kernel[name] = (by_kernel.get(name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / iters)
+        if by_kernel:
+            return sum(by_kernel.values()), by_kernel
+        print(f"profiler trace {attempt}: no device kernel among its events "
+              f"{kinds}", flush=True)
+    if required:
         fail("the profiler saw no device kernels: device time not measured")
-    return sum(by_kernel.values()), by_kernel
+    return None, {}
+
+
+def sweep_device_ms(fn, iters: int = 20) -> tuple:
+    """(ms per call, its source) of a sweep kernel launch: the device time
+    of the kernels named ``sweep`` from the profiler, or, where the
+    profiler shows no device kernel, CUDA events around the calls."""
+    _, by_kernel = device_ms(fn, iters=iters, required=False)
+    if by_kernel:
+        return (sum(v for k, v in by_kernel.items() if "sweep" in k),
+                "device (profiler)")
+    return time_ms(fn, iters=iters), "events (the profiler saw no kernel)"
 
 
 def time_abba(fns: dict, order: tuple) -> dict:
@@ -390,19 +434,23 @@ def sweep_chain(structure, counts: np.ndarray, g_slot: np.ndarray) -> dict:
 
 def launch_report(sweep_kernel, args, kw) -> dict:
     """The sweep kernel's launch shape for one call's inputs: warps per
-    block, the rows' skew, dynamic shared memory per block, blocks and
-    waves."""
+    block, the rows' skew, the bytes of a block's layout and where they
+    live (shared memory, or a device-memory scratch), blocks and waves (the
+    rows lag within their segment: a fleet's DAGs each from their own
+    first row)."""
     caps, counts, structure = args[0], args[5], args[6]
     C, G, K = caps.shape
-    T = structure.n_rows
-    warps, skew, nbytes = sweep_kernel.launch_shape(
-        G, structure.n_slots, T, structure.n_edges, structure.n_out,
-        int(structure.sink_rows.numel()), int(counts.sum(dim=1).max()), K,
-        kw["sample_every"])
+    warps, skew, nbytes, where = sweep_kernel.launch_shape(
+        G, structure.n_slots, structure.n_rows, structure.n_edges,
+        structure.n_out, int(structure.sink_rows.numel()),
+        int(counts.sum(dim=1).max()), K, kw["sample_every"],
+        structure.lag_rows)
     steps = kw["steps"]
     return {"warps_per_block": warps, "skew": skew,
-            "shared_bytes_per_block": nbytes, "blocks": -(-K // warps) * C,
-            "waves": steps + skew * (T - 1) if steps else 0}
+            "shared_bytes_per_block": nbytes if where == "shared" else 0,
+            "layout_bytes_per_block": nbytes, "placement": where,
+            "lag_rows": structure.lag_rows, "blocks": -(-K // warps) * C,
+            "waves": steps + skew * (structure.lag_rows - 1) if steps else 0}
 
 
 def pow2_buckets(search_mod, dag, alloc, lib, ranked) -> list:
@@ -427,10 +475,12 @@ def max_err(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(a - b).max()) if a.size else 0.0
 
 
-def against_plain(reference, args, kw, kern) -> tuple:
+def against_plain(reference, args, kw, kern, tol: float = SWEEP_TOL
+                  ) -> tuple:
     """Run the plain version on the kernel call's own card tensors and hold
     the kernel's outputs ``kern`` against it field by field: (max abs error,
-    all fields within SWEEP_TOL, the plain call's event time in ms)."""
+    all fields within ``tol`` abs + rel, the plain call's event time in
+    ms)."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     plain = reference(*args, **kw)
@@ -439,7 +489,7 @@ def against_plain(reference, args, kw, kern) -> tuple:
     err = max((float((k - p).abs().max()) if k.numel() else 0.0
                for k, p in zip(kern, plain)), default=0.0)
     close = all(k.shape == p.shape and torch.allclose(
-        k, p, rtol=SWEEP_TOL, atol=SWEEP_TOL) for k, p in zip(kern, plain))
+        k, p, rtol=tol, atol=tol) for k, p in zip(kern, plain))
     return err, close, start.elapsed_time(end)
 
 
@@ -454,14 +504,21 @@ def scheduler_phase(dev: torch.device):
     from repro_torch.kernels.sweep_scan.ref import (n_samples_of,
                                                     sweep_scan_reference)
 
-    # the sweep kernel's registers and spills, from ptxas (built in phase 2)
-    ptxas = [(fn, regs, st, ld) for fn, (regs, st, ld) in ptxas_report(
-        str(sweep_kernel.build()["ptxas"])).items() if "sweep" in fn]
-    if len(ptxas) != 1:
-        fail(f"ptxas reports {len(ptxas)} sweep kernel functions, expected 1")
-    fn_name, regs, spill_st, spill_ld = ptxas[0]
+    # the sweep kernel's registers and spills, from ptxas (built in phase 2):
+    # its shared-memory instantiation, which the sweeps below run, and the
+    # device-memory one
+    ptxas = {fn: v for fn, v in ptxas_report(
+        str(sweep_kernel.build()["ptxas"])).items() if "sweep" in fn}
+    if sorted(ptxas) != ["sweep_wave_kernel<false>",
+                         "sweep_wave_kernel<true>"]:
+        fail(f"ptxas reports sweep kernel functions {sorted(ptxas)}, "
+             "expected sweep_wave_kernel<false> and <true>")
+    fn_name = "sweep_wave_kernel<false>"
+    regs, spill_st, spill_ld = ptxas[fn_name]
     resources = {"function": fn_name, "registers": regs,
-                 "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld}
+                 "spill_store_bytes": spill_st, "spill_load_bytes": spill_ld,
+                 "device_layout_registers_spills": ptxas[
+                     "sweep_wave_kernel<true>"]}
     res_text = (f"{fn_name}: {regs} registers, spills {spill_st}/{spill_ld} "
                 "B (ptxas)")
 
@@ -471,6 +528,9 @@ def scheduler_phase(dev: torch.device):
         s = plan(ALL_DAGS[name](), 100.0, lib, allocator="mba", mapper="sam")
         sims[name] = DataflowSimulator(s.dag, s.allocation, s.mapping, lib)
 
+    # one untimed sweep first, so that every timed one below is warm (the
+    # process's first sweep carries its one-time costs)
+    sims["linear"].sweep_raw(SWEEP_OMEGAS, **SWEEP_KW)
     # the main path: six sweeps on the kernel, counted
     raws, walls = {}, {}
     with recorded_calls(sweep_kernel, "sweep_scan_fwd") as calls:
@@ -632,9 +692,8 @@ def scheduler_phase(dev: torch.device):
 
     # timing: the grid sweep, and the grid search's buckets
     args, kw = grid_args
-    total, by_kernel = device_ms(lambda: sweep_kernel.sweep_scan_fwd(*args,
-                                                                     **kw))
-    sweep_ms = sum(v for k, v in by_kernel.items() if "sweep" in k)
+    sweep_ms, sweep_ms_source = sweep_device_ms(
+        lambda: sweep_kernel.sweep_scan_fwd(*args, **kw))
     sweep_event_ms = time_ms(lambda: sweep_kernel.sweep_scan_fwd(*args, **kw))
     structure, counts = args[6], args[5].cpu().numpy()
     flops, nbytes, column_ops = sweep_work(
@@ -647,10 +706,9 @@ def scheduler_phase(dev: torch.device):
     bucket_ms, bucket_event_ms = [], []
     bucket_plain_ms, bucket_chain = grid_bucket_plain_ms, []
     for b_args, b_kw, _ in grid_search_calls:
-        _, by_k = device_ms(lambda: sweep_kernel.sweep_scan_fwd(*b_args,
-                                                                **b_kw),
-                            iters=5)
-        bucket_ms.append(sum(v for k, v in by_k.items() if "sweep" in k))
+        ms, bucket_source = sweep_device_ms(
+            lambda: sweep_kernel.sweep_scan_fwd(*b_args, **b_kw), iters=5)
+        bucket_ms.append(ms)
         bucket_event_ms.append(time_ms(
             lambda: sweep_kernel.sweep_scan_fwd(*b_args, **b_kw), iters=5))
         bucket_chain.append(sweep_chain(b_args[6], b_args[5].cpu().numpy(),
@@ -658,7 +716,8 @@ def scheduler_phase(dev: torch.device):
     timing = {
         "grid_sweep": {
             "C": 1, "K": len(SWEEP_OMEGAS), "steps": kw["steps"],
-            "kernel_ms": sweep_ms, "kernel_event_ms": sweep_event_ms,
+            "kernel_ms": sweep_ms, "kernel_ms_source": sweep_ms_source,
+            "kernel_event_ms": sweep_event_ms,
             "plain_event_ms": grid_plain_ms, "numpy_host_ms": grid_numpy_ms,
             "bound_ms": sweep_bound_ms, "bound_by": sweep_bound_by,
             "flops": flops, "bytes": nbytes,
@@ -674,6 +733,7 @@ def scheduler_phase(dev: torch.device):
             "K": int(grid_search_calls[0][0][0].shape[2]),
             "steps": grid_search_calls[0][1]["steps"],
             "kernel_ms_per_bucket": bucket_ms,
+            "kernel_ms_source": bucket_source,
             "kernel_ms": sum(bucket_ms),
             "kernel_event_ms_per_bucket": bucket_event_ms,
             "chain_ops_per_tick_per_bucket": bucket_chain,
@@ -685,7 +745,7 @@ def scheduler_phase(dev: torch.device):
             "plain_event_ms": sum(bucket_plain_ms),
             "numpy_host_ms": grid_search_numpy_ms}}
     print(f"sweep timing at the grid sweep (C=1, K=50, {kw['steps']} ticks), "
-          f"ms: kernel {sweep_ms:.6f} (device, profiler) / "
+          f"ms: kernel {sweep_ms:.6f} ({sweep_ms_source}) / "
           f"{sweep_event_ms:.6f} (events); plain on the card "
           f"{grid_plain_ms:.6f} (events, 1 call); numpy engine "
           f"{grid_numpy_ms:.6f} (host); bound_ms {sweep_bound_ms:.6f} "
@@ -698,7 +758,7 @@ def scheduler_phase(dev: torch.device):
           f"{sweep_ms * 1e6 / chain_ops:.3f} ns each", flush=True)
     print(f"sweep timing at the grid search at 100 t/s (buckets "
           f"{timing['grid_search_100']['buckets']}), ms: kernel "
-          f"{sum(bucket_ms):.6f} (device, summed over buckets: "
+          f"{sum(bucket_ms):.6f} ({bucket_source}, summed over buckets: "
           + " / ".join(f"{m:.6f}" for m in bucket_ms)
           + f"; events {sum(bucket_event_ms):.6f}); plain on the "
           f"card {sum(bucket_plain_ms):.6f} (events); numpy engine search "
@@ -728,6 +788,220 @@ def scheduler_phase(dev: torch.device):
         "bound_by": sweep_bound_by,
         "library_ms": None,
     }
+
+
+#: benchmarks/bench_fleet.py's fleet sizes and budgets (max_min, sam), two
+#: fleets past its largest, and one whose state no longer fits a block's
+#: shared memory (the kernel lays it out in device memory)
+FLEETS = ((2, 16), (3, 32), (4, 64), (6, 64), (8, 96), (12, 128),
+          (24, 256))
+#: the kernel against its plain version on the same card tensors, in fleets
+PLAIN_TOL = 1e-13
+#: benchmarks/bench_online.py's 20-event day (BUDGET0, sam, STEP, MAX_RATE);
+#: a "fail" kills the named DAG's last VM, resolved when the trace is built
+ONLINE_OPTS = dict(budget_slots=44, mapper="sam", step=2.0, max_rate=2000.0)
+ONLINE_TRACE = (
+    ("arrive", ("lin-a", "linear", 100.0)),
+    ("arrive", ("dia-a", "diamond", 150.0)),
+    ("arrive", ("star-a", "star", 80.0)),
+    ("rate", ("lin-a", 150.0)),
+    ("arrive", ("tra-a", "traffic", 120.0)),
+    ("grow", 6),
+    ("arrive", ("lin-b", "linear", 60.0)),
+    ("fail", "lin-a"),
+    ("rate", ("star-a", 700.0)),
+    ("rate", ("star-a", 720.0)),
+    ("grow", 8),
+    ("rate", ("star-a", 80.0)),
+    ("arrive", ("star-b", "star", 70.0)),
+    ("rate", ("lin-a", 151.0)),
+    ("arrive", ("dia-b", "diamond", 100.0)),
+    ("fail", "tra-a"),
+    ("rate", ("tra-a", 60.0)),
+    ("arrive", ("tra-b", "traffic", 90.0)),
+    ("depart", "lin-b"),
+    ("grow", 4),
+)
+
+
+def online_trace(core, lib):
+    """ONLINE_TRACE as an EventTrace at t = 0, 1, ...: each VM failure is
+    resolved to the DAG's last VM by a dry run without co-simulation
+    (planning is deterministic, so a fresh controller meets the same
+    ids)."""
+    dry = core.FleetController(lib, **ONLINE_OPTS)
+    events = []
+    for t, (kind, payload) in enumerate(ONLINE_TRACE):
+        if kind == "arrive":
+            name, dag, ceiling = payload
+            ev = core.DagArrive(name, core.ALL_DAGS[dag](), max_rate=ceiling)
+        elif kind == "depart":
+            ev = core.DagDepart(payload)
+        elif kind == "rate":
+            ev = core.RateChange(*payload)
+        elif kind == "grow":
+            ev = core.VmAdd(payload)
+        else:
+            ev = core.VmFail(dry.entry(payload).schedule.vms[-1].id)
+        dry.apply(ev)
+        events.append((float(t), ev))
+    return core.EventTrace(events)
+
+
+def close_fields(a, b, tol) -> bool:
+    return a.shape == b.shape and np.allclose(a, b, rtol=tol, atol=tol)
+
+
+def fleet_phase() -> dict:
+    """Phase 8; returns what the sweep kernel's entry of the kernels line
+    gains."""
+    import repro_torch.core as core
+    from repro_torch.core import online as online_mod
+    from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
+    from repro_torch.kernels.sweep_scan.ref import (n_samples_of,
+                                                    sweep_scan_reference)
+
+    lib = core.paper_library()
+    plans = {}
+    for size, budget in FLEETS:
+        names = [f"{n}{i}" for i, n in enumerate(
+            itertools.islice(itertools.cycle(core.ALL_DAGS), size))]
+        plans[size] = core.plan_fleet(
+            {n: core.ALL_DAGS[n.rstrip("0123456789")]() for n in names}, lib,
+            budget_slots=budget, objective="max_min", mapper="sam")
+    # one untimed co-simulation first, so that every timed one is warm
+    core.simulate_fleet(plans[FLEETS[0][0]], lib)
+
+    fleets, launches_total, worst_plain = [], 0, 0.0
+    for size, budget in FLEETS:
+        fp = plans[size]
+        # the main path: one co-simulation of the whole fleet, counted
+        with recorded_calls(core.SweepBatch, "sweep_raw") as raws, \
+                recorded_calls(sweep_kernel, "sweep_scan_fwd") as calls:
+            sweep_kernel.reset_launch_count()
+            t0 = time.perf_counter()
+            rep = core.simulate_fleet(fp, lib)
+            kernel_ms = (time.perf_counter() - t0) * 1e3
+            launches = sweep_kernel.launch_count()
+        launches_total += launches
+        with recorded_calls(core.SweepBatch, "sweep_raw") as host_raws:
+            t0 = time.perf_counter()
+            rep_n = core.simulate_fleet(fp, lib, engine="numpy")
+            numpy_ms = (time.perf_counter() - t0) * 1e3
+        if launches != 1 or len(calls) != 1 or len(raws) != 1:
+            fail(f"fleet of {size}: {launches} sweep launches, expected 1")
+        (args, kw, kern), raw, host = calls[0], raws[0][2], host_raws[0][2]
+        err_numpy = max(max_err(getattr(raw, f), getattr(host, f))
+                        for f in RAW_FIELDS)
+        ok_numpy = all(close_fields(getattr(raw, f), getattr(host, f),
+                                    SWEEP_TOL) for f in RAW_FIELDS)
+        for name, e in rep.entries.items():
+            h = rep_n.entries[name]
+            ok_numpy &= (e.actual_max_stable == h.actual_max_stable
+                         and e.predicted_max_rate == h.predicted_max_rate
+                         and [r.stable for r in e.results]
+                         == [r.stable for r in h.results])
+        for a, b in ((rep.slot_busy, rep_n.slot_busy),
+                     (rep.vm_cpu_actual, rep_n.vm_cpu_actual),
+                     (rep.vm_mem_actual, rep_n.vm_mem_actual)):
+            keys = sorted(b, key=str)
+            ok_numpy &= sorted(a, key=str) == keys and close_fields(
+                np.array([a[k] for k in keys]),
+                np.array([b[k] for k in keys]), SWEEP_TOL)
+        err_plain, ok_plain, plain_ms = against_plain(
+            sweep_scan_reference, args, kw, kern, PLAIN_TOL)
+        worst_plain = max(worst_plain, err_plain)
+        launch = launch_report(sweep_kernel, args, kw)
+        dev_ms, dev_source = sweep_device_ms(
+            lambda: sweep_kernel.sweep_scan_fwd(*args, **kw), iters=5)
+        structure, counts = args[6], args[5].cpu().numpy()
+        flops, nbytes, _ = sweep_work(
+            structure, args[0].cpu().numpy(), counts, kw["steps"], kw["s0"],
+            n_samples_of(kw["steps"], kw["sample_every"]))
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_FP64)
+        spec = raws[0][0][0].spec
+        entry = {
+            "dags": size, "budget": budget, "T": spec.n_rows,
+            "G": spec.n_groups, "S": len(spec.slots),
+            "L": int(counts.sum(axis=1).max()), "K": int(args[0].shape[2]),
+            "steps": kw["steps"], "launches": launches,
+            "kernel_wall_ms": kernel_ms, "numpy_wall_ms": numpy_ms,
+            "kernel_device_ms": dev_ms, "kernel_ms_source": dev_source,
+            "plain_event_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err_vs_numpy": err_numpy,
+            "max_abs_err_vs_plain": err_plain, **launch}
+        ok = ok_numpy and ok_plain
+        fleets.append(entry)
+        print(f"fleet [{size} DAGs, {budget} slots] T={spec.n_rows} "
+              f"G={spec.n_groups} S={len(spec.slots)} L={entry['L']} "
+              f"K={entry['K']}: {launches} launch; {launch['warps_per_block']}"
+              f" warps/block, skew {launch['skew']}, {launch['lag_rows']} "
+              f"lag rows, {launch['waves']} waves, "
+              f"{launch['layout_bytes_per_block']} B/block in "
+              f"{launch['placement']} memory; simulate_fleet wall ms kernel "
+              f"{kernel_ms:.3f} (numpy {numpy_ms:.3f}), kernel ms "
+              f"{dev_ms:.6f} ({dev_source}; bound {bound_ms:.6f}, "
+              f"{bound_by}); kernel vs "
+              f"numpy max_abs_err {err_numpy:.3g} (tol {SWEEP_TOL:g}), vs "
+              f"plain on the card {err_plain:.3g} (tol {PLAIN_TOL:g} abs + "
+              f"rel) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"fleet co-simulation of {size} DAGs disagrees")
+
+    # the controller: the 20-event day replayed with co-simulation
+    replays, walls, sims_run = {}, {}, {}
+    for engine in ("scan", "numpy"):
+        ctl = core.FleetController(lib, **ONLINE_OPTS)
+        trace = online_trace(core, lib)
+        with recorded_calls(online_mod, "simulate_fleet") as simulated:
+            sweep_kernel.reset_launch_count()
+            t0 = time.perf_counter()
+            log = ctl.replay(trace, simulate=True, engine=engine)
+            walls[engine] = (time.perf_counter() - t0) * 1e3
+            launches = sweep_kernel.launch_count()
+        replays[engine] = (ctl, log, launches)
+        sims_run[engine] = len(simulated)
+    (ctl, log, replay_launches), (_, log_n, numpy_launches) = \
+        replays["scan"], replays["numpy"]
+    same = ([(r.rates, r.stable) for r in log.records]
+            == [(r.rates, r.stable) for r in log_n.records])
+    ok = (same and len(log) == len(ONLINE_TRACE) and numpy_launches == 0
+          and replay_launches == sims_run["scan"] > 0)
+    sweep_kernel.reset_launch_count()
+    proved = ctl.cosimulate(prove=True)
+    prove_launches = sweep_kernel.launch_count()
+    ok &= prove_launches == (0 if proved.engine == "proved" else 1)
+    stable_n = sum(sum(r.stable.values()) for r in log.records)
+    controller = {
+        "events": len(log), "dags_at_end": len(ctl.dag_names),
+        "launches": replay_launches, "cosimulations": sims_run["scan"],
+        "verdicts_and_rates_equal_numpy": same,
+        "stable_verdicts": stable_n,
+        "kernel_replay_wall_ms": walls["scan"],
+        "numpy_replay_wall_ms": walls["numpy"],
+        "prove": {"engine": proved.engine, "launches": prove_launches,
+                  "proved": {n: e.proved for n, e in proved.entries.items()}}}
+    print(f"controller [bench_online's {len(log)} events, "
+          f"{len(ctl.dag_names)} DAGs at the end]: replay(simulate=True) "
+          f"{walls['scan']:.3f} ms on the kernel ({replay_launches} launches "
+          f"for {sims_run['scan']} co-simulations), {walls['numpy']:.3f} ms "
+          f"on numpy; per-event rates and stable verdicts equal {same}; "
+          f"cosimulate(prove=True): engine {proved.engine}, "
+          f"{prove_launches} launches, proved {controller['prove']['proved']}"
+          f" {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the controller replay on the kernel disagrees with numpy")
+    print(json.dumps({"fleet": {"fleets": fleets, "controller": controller}}),
+          flush=True)
+    return {"launches": launches_total + replay_launches + prove_launches,
+            "fleet_launches": launches_total,
+            "controller_launches": replay_launches + prove_launches,
+            "fleet_max_abs_err_vs_plain": worst_plain,
+            "fleet_launch_shape": {k: fleets[-1][k] for k in (
+                "dags", "warps_per_block", "skew", "lag_rows",
+                "layout_bytes_per_block", "placement", "waves")}}
+
 
 
 def main() -> int:
@@ -1072,6 +1346,16 @@ def main() -> int:
 
     # 7. scheduler: the sweep engine and the mapper search -------------------------
     sweep_entry = scheduler_phase(dev)
+
+    # 8. fleet: fleet co-simulation and the online controller ----------------------
+    fleet = fleet_phase()
+    sweep_entry["launches"] += fleet["launches"]
+    sweep_entry["launches_by_path"].update(
+        simulate_fleet=fleet["fleet_launches"],
+        controller=fleet["controller_launches"])
+    sweep_entry["fleet_max_abs_err_vs_plain"] = \
+        fleet["fleet_max_abs_err_vs_plain"]
+    sweep_entry["fleet_launch_shape"] = fleet["fleet_launch_shape"]
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",

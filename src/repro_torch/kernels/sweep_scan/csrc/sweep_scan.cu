@@ -9,6 +9,10 @@
 // with the structure passed as arrays instead of being unrolled at trace
 // time, so one build serves every DAG, shape bucket and fleet batch:
 //   row_off  (T + 1)     groups of task row r are row_off[r] .. row_off[r+1]
+//   row_lag  (T)         row r's index within its segment: a run of rows
+//                        that no later row's in-edge reaches back before
+//                        (one DAG of a stacked fleet batch); lag_rows is
+//                        the longest segment's rows
 //   edge_off (T + 1)     in-edges of row r are edge_off[r] .. edge_off[r+1],
 //   edge_src, edge_mult  each with its source row (an earlier row: rows are
 //                        in topological order) and multiplier; the hop
@@ -48,30 +52,39 @@
 // Design: one warp per (candidate, rate column), up to kMaxWarps warps a
 // block, all of one candidate (blockIdx.y = c).
 //   * Row r at tick t needs only row r at tick t - 1 (its queues) and its
-//     upstream rows at tick t.  So rows run as a wavefront: lane r % 32 runs
-//     row r, `skew` * r ticks behind row 0, and in wave w every lane
-//     advances its row by one tick (t = w - skew r), walking the row's
+//     upstream rows at tick t, all in its own segment.  So rows run as a
+//     wavefront: lane r % 32 runs row r, `skew` * lag ticks behind its
+//     segment's first row (lag = row_lag[r]), and in wave w every lane
+//     advances its row by one tick (t = w - skew lag), walking the row's
 //     in-edges and groups in order.  A sweep of `steps` ticks takes
-//     steps + skew (T - 1) waves of one row each, where a tick done row by
-//     row takes T rows in sequence.  With skew = sample_every every row
-//     samples the path latency in the same waves, so the warp pays for the
-//     sample terms in one wave of sample_every, not in every wave; the
-//     wrapper takes skew 1 where the deeper rings that needs do not fit.
-//   * Realized rates pass between rows through a ring in shared memory
-//     indexed by tick (depth DR, the least power of two > skew (T - 1): a
-//     value is read at most skew (T - 1) waves after it is written), the
-//     path latency of each row through a ring indexed by sample (depth DB,
-//     the least power of two >= T).  Busy terms served / cap wait in a
-//     DR-deep ring too, placed in slot order, until the wave in which the
-//     last row finishes their tick; then lanes over slots add them in group
-//     order.  An output's latency sample is written in the wave its last
+//     steps + skew (TL - 1) waves of one row each (TL = lag_rows), where a
+//     tick done row by row takes T rows in sequence; a fleet's DAGs run
+//     side by side, each lagged from its own first row.  With skew =
+//     sample_every every row samples the path latency in the same waves,
+//     so the warp pays for the sample terms in one wave of sample_every,
+//     not in every wave; the wrapper takes skew 1 where the deeper rings
+//     that needs do not fit.
+//   * Realized rates pass between rows through a ring indexed by tick
+//     (depth DR, the least power of two > skew (TL - 1): a value is read
+//     at most skew (TL - 1) waves after it is written), the path latency of
+//     each row through a ring indexed by sample (depth DB, the least power
+//     of two >= TL).  Busy terms served / cap wait in a DR-deep ring too,
+//     placed in slot order, until the wave in which the deepest row of
+//     every segment has finished their tick (wave tb + skew (TL - 1)); then
+//     lanes over slots add them in group order, across the whole slot
+//     pool.  An output's latency sample is written in the wave its deepest
 //     sink row samples.
 //   * The whole state (queues, served_acc, busy, caps, their reciprocals
-//     and cap dt, the rings) lives in shared memory for the whole launch,
-//     private to its warp; the candidate's placement and the structure (a
-//     16-byte descriptor per row and per in-edge) are staged once per
-//     block.  Device memory is read once at the start and written once at
-//     the end, the latency samples as they are made.
+//     and cap dt, the rings) is private to its warp for the whole launch;
+//     the candidate's placement and the structure (a 16-byte descriptor per
+//     row and per in-edge) are staged once per block.  Placement 0 keeps
+//     the block's whole layout in shared memory.  Where one column's does
+//     not fit in the 227 KB a block can have (a fleet far past a dozen
+//     DAGs, or thousands of groups), placement 1 lays out the same bytes in
+//     a device-memory scratch of the wrapper's, one stride per block, and
+//     the kernel runs unchanged on them.  Device memory is otherwise read
+//     once at the start and written once at the end, the latency samples
+//     as they are made.
 //   * Divisions by dt and by a cap use the divisor's reciprocal rounded once
 //     and two exact FMA corrections, which round the quotient correctly
 //     (Markstein), in 5 dependent operations instead of the hardware
@@ -144,50 +157,63 @@ __host__ __device__ inline int ring_depth(int n) {
 // Doubles a warp keeps: queue, served_acc, cap, its reciprocal, cap dt (G
 // each), src_rate (T), busy (S), the realized ring (T x DR), the busy-term
 // ring (L x DR; L: the most real groups of a candidate) and the latency
-// ring (T x DB), DR = ring_depth(skew (T - 1) + 1), DB = ring_depth(T).
-__host__ __device__ inline long long warp_doubles(int G, int S, int T, int L, int skew) {
-  const long long DR = ring_depth(skew * (T - 1) + 1), DB = ring_depth(T);
+// ring (T x DB), DR = ring_depth(skew (TL - 1) + 1), DB = ring_depth(TL).
+__host__ __device__ inline long long warp_doubles(int G, int S, int T, int L, int skew,
+                                                  int TL) {
+  const long long DR = ring_depth(skew * (TL - 1) + 1), DB = ring_depth(TL);
   return 5LL * G + T + S + (1LL * T + L) * DR + 1LL * T * DB;
 }
 
-// Dynamic shared memory of a block of `warps` warps: rows (T) and edges (E)
-// at 16 bytes, the block's doubles (g_frac G, hops E), every warp's state,
-// then the ints (slot_off S + 1, each group's place in slot order G,
-// sink_off n_out + 1, sink_rows n_sink, each output's last sink row n_out).
-// kernel.py::shared_bytes computes the same.
+// Bytes of a block's layout of `warps` warps: rows (T) and edges (E) at 16
+// bytes, the block's doubles (g_frac G, hops E), every warp's state, then
+// the ints (slot_off S + 1, each group's place in slot order G, sink_off
+// n_out + 1, sink_rows n_sink, each output's deepest sink lag n_out, each
+// row's lag T).  kernel.py::shared_bytes computes the same.
 __host__ __device__ inline long long shared_bytes(int G, int S, int T, int E, int n_out,
-                                                  int n_sink, int L, int skew, int warps) {
-  return 16LL * (T + E) + 8LL * (G + E) + 8LL * warps * warp_doubles(G, S, T, L, skew) +
-         4LL * (S + 1 + G + 2LL * n_out + 1 + n_sink);
+                                                  int n_sink, int L, int skew, int warps,
+                                                  int TL) {
+  return 16LL * (T + E) + 8LL * (G + E) + 8LL * warps * warp_doubles(G, S, T, L, skew, TL) +
+         4LL * (S + 1 + G + 2LL * n_out + 1 + n_sink + T);
 }
 
+// kScratch false: the layout in dynamic shared memory (placement 0); true:
+// in this block's stride of the device scratch (placement 1).  Two
+// instantiations of one body, so that the shared one addresses shared
+// memory directly.
+template <bool kScratch>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     sweep_wave_kernel(const double* __restrict__ caps, const double* __restrict__ src_rate,
                       const double* __restrict__ g_frac, const double* __restrict__ hops,
                       const int* __restrict__ counts, const int* __restrict__ slot_off,
                       const int* __restrict__ slot_grp, const int* __restrict__ row_off,
+                      const int* __restrict__ row_lag,
                       const int* __restrict__ edge_off, const int* __restrict__ edge_src,
                       const double* __restrict__ edge_mult, const int* __restrict__ sink_off,
                       const int* __restrict__ sink_rows, double* __restrict__ queues,
                       double* __restrict__ busy, double* __restrict__ served,
-                      double* __restrict__ realized, double* __restrict__ lat, int T, int G,
+                      double* __restrict__ realized, double* __restrict__ lat,
+                      unsigned char* __restrict__ scratch, long long stride, int T, int G,
                       int S, int E, int n_out, int n_sink, int L, int K, int n_samples,
-                      int steps, int sample_every, int s0, int skew, double dt) {
+                      int steps, int sample_every, int s0, int skew, int TL, double dt) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t c = blockIdx.y;
   const int k = blockIdx.x * warps + warp;
   const size_t Ks = static_cast<size_t>(K);
-  const int DR = ring_depth(skew * (T - 1) + 1), MR = DR - 1;
-  const int DB = ring_depth(T), MB = DB - 1;
+  const int DR = ring_depth(skew * (TL - 1) + 1), MR = DR - 1;
+  const int DB = ring_depth(TL), MB = DB - 1;
 
-  // carve: rows, edges, the block's doubles, the warps' doubles, the ints
-  Row* rows = reinterpret_cast<Row*>(smem);
+  // carve: rows, edges, the block's doubles, the warps' doubles, the ints;
+  // in shared memory, or in this block's stride of the device scratch
+  unsigned char* base =
+      kScratch ? scratch + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * stride
+               : smem;
+  Row* rows = reinterpret_cast<Row*>(base);
   Edge* edges = reinterpret_cast<Edge*>(rows + T);
   double* frac = reinterpret_cast<double*>(edges + E);
   double* hop = frac + G;
-  const long long wd = warp_doubles(G, S, T, L, skew);
+  const long long wd = warp_doubles(G, S, T, L, skew, TL);
   double* queue = hop + E + warp * wd;
   double* acc = queue + G;          // served within the window
   double* cap = acc + G;            // 0 for padded groups
@@ -202,12 +228,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   int* pos = s_off + S + 1;         // group g's place in slot order, -1 if padded
   int* k_off = pos + G;
   int* k_rows = k_off + n_out + 1;
-  int* k_last = k_rows + n_sink;    // each output's last sink row (0 with none)
+  int* k_last = k_rows + n_sink;    // each output's deepest sink lag (0 with none)
+  int* lag = k_last + n_out;        // each row's lag in its segment
 
   for (int i = threadIdx.x; i < T; i += blockDim.x) {
     const int lo = row_off[i];
     rows[i] = Row{lo, row_off[i + 1] > lo ? counts[c * T + i] : -1, edge_off[i],
                   edge_off[i + 1]};
+    lag[i] = row_lag[i];
   }
   for (int i = threadIdx.x; i < E; i += blockDim.x) {
     edges[i] = Edge{edge_mult[i], edge_src[i], 0};
@@ -222,7 +250,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   for (int i = threadIdx.x; i < n_sink; i += blockDim.x) k_rows[i] = sink_rows[i];
   for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
     int last = 0;
-    for (int j = sink_off[i]; j < sink_off[i + 1]; ++j) last = max(last, sink_rows[j]);
+    for (int j = sink_off[i]; j < sink_off[i + 1]; ++j) last = max(last, row_lag[sink_rows[j]]);
     k_last[i] = last;
   }
   __syncthreads();
@@ -248,11 +276,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const double rdt = recip(dt);
   __syncwarp();
 
-  const int waves = steps > 0 ? steps + skew * (T - 1) : 0;
+  const int waves = steps > 0 ? steps + skew * (TL - 1) : 0;
   for (int w = 0; w < waves; ++w) {
     // each lane advances its rows by one tick
     for (int row = lane; row < T; row += 32) {
-      const int t = w - skew * row;
+      const int t = w - skew * lag[row];
       if (t < 0 || t >= steps) continue;
       const Row r = rows[row];
       const int at = t & MR;
@@ -302,9 +330,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       }
     }
     __syncwarp();
-    // the busy terms of the tick the last row has just finished, lane per
-    // slot, its groups in ascending order: np.add.at's order
-    const int tb = w - skew * (T - 1);
+    // the busy terms of the tick every segment's deepest row has just
+    // finished, lane per slot, its groups in ascending order: np.add.at's
+    const int tb = w - skew * (TL - 1);
     if (tb >= s0 && tb >= 0) {
       const int at = tb & MR;
       for (int s = lane; s < S; s += 32) {
@@ -313,7 +341,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         bsy[s] = b;
       }
     }
-    // the latency samples whose last sink row has just sampled
+    // the latency samples whose deepest sink row has just sampled
     for (int i = lane; i < n_out; i += 32) {
       const int t = w - skew * k_last[i];
       if (t < 0 || t >= steps || t % sample_every != 0) continue;
@@ -342,43 +370,52 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
 // Launches the sweep on `stream` and returns cudaGetLastError() (0 when the
 // launch was taken).  Pointers are device pointers laid out as above;
-// `warps` (1..4), `skew` and `shared` (bytes) are the wrapper's launch
-// shape, which must equal shared_bytes() here; L is the most real groups of
-// a candidate.
+// `warps` (1..4), `skew`, `placement` and `nbytes` are the wrapper's launch
+// shape: nbytes must equal shared_bytes() here.  Placement 0 takes nbytes
+// of dynamic shared memory (at most 227 KB); placement 1 takes none and
+// lays each block out in its stride (nbytes rounded up to 16) of `scratch`,
+// which holds C x ceil(K / warps) strides.  L is the most real groups of a
+// candidate, lag_rows the longest segment's rows.
 extern "C" int repro_sweep_scan(const void* caps, const void* src_rate, const void* g_frac,
                                 const void* hops, const void* counts, const void* slot_off,
-                                const void* slot_grp, const void* row_off,
+                                const void* slot_grp, const void* row_off, const void* row_lag,
                                 const void* edge_off, const void* edge_src,
                                 const void* edge_mult, const void* sink_off,
                                 const void* sink_rows, void* queues, void* busy, void* served,
-                                void* realized, void* lat, int C, int T, int G, int S, int E,
-                                int n_out, int n_sink, int L, int K, int n_samples, int steps,
-                                int sample_every, int s0, int skew, int warps, int shared,
+                                void* realized, void* lat, void* scratch, int C, int T, int G,
+                                int S, int E, int n_out, int n_sink, int L, int K,
+                                int n_samples, int steps, int sample_every, int s0, int skew,
+                                int lag_rows, int warps, int placement, long long nbytes,
                                 double dt, int device, void* stream) {
   if (C < 1 || T < 1 || G < 0 || S < 0 || E < 0 || n_out < 0 || n_sink < 0 || L < 0 ||
       L > G || K < 1 || steps < 0 || sample_every < 1 || s0 < 0 ||
       n_samples != (steps + sample_every - 1) / sample_every || C > 65535 || skew < 1 ||
-      warps < 1 || warps > kMaxWarps || shared > kMaxShared ||
-      shared != shared_bytes(G, S, T, E, n_out, n_sink, L, skew, warps))
+      lag_rows < 1 || lag_rows > T || warps < 1 || warps > kMaxWarps ||
+      (placement == 0 && nbytes > kMaxShared) ||
+      (placement == 1 && scratch == nullptr) || placement < 0 || placement > 1 ||
+      nbytes != shared_bytes(G, S, T, E, n_out, n_sink, L, skew, warps, lag_rows))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int shared = placement == 0 ? static_cast<int>(nbytes) : 0;
   if (shared > 48 * 1024) {
-    err = cudaFuncSetAttribute(sweep_wave_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               shared);
+    err = cudaFuncSetAttribute(sweep_wave_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((K + warps - 1) / warps, C);
-  sweep_wave_kernel<<<grid, warps * 32, shared, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = placement == 1 ? sweep_wave_kernel<true> : sweep_wave_kernel<false>;
+  kernel<<<grid, warps * 32, shared, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(caps), static_cast<const double*>(src_rate),
       static_cast<const double*>(g_frac), static_cast<const double*>(hops),
       static_cast<const int*>(counts), static_cast<const int*>(slot_off),
       static_cast<const int*>(slot_grp), static_cast<const int*>(row_off),
-      static_cast<const int*>(edge_off), static_cast<const int*>(edge_src),
-      static_cast<const double*>(edge_mult), static_cast<const int*>(sink_off),
-      static_cast<const int*>(sink_rows), static_cast<double*>(queues),
-      static_cast<double*>(busy), static_cast<double*>(served), static_cast<double*>(realized),
-      static_cast<double*>(lat), T, G, S, E, n_out, n_sink, L, K, n_samples, steps,
-      sample_every, s0, skew, dt);
+      static_cast<const int*>(row_lag), static_cast<const int*>(edge_off),
+      static_cast<const int*>(edge_src), static_cast<const double*>(edge_mult),
+      static_cast<const int*>(sink_off), static_cast<const int*>(sink_rows),
+      static_cast<double*>(queues), static_cast<double*>(busy), static_cast<double*>(served),
+      static_cast<double*>(realized), static_cast<double*>(lat),
+      static_cast<unsigned char*>(scratch), (nbytes + 15) / 16 * 16,
+      T, G, S, E, n_out, n_sink, L, K, n_samples, steps, sample_every, s0, skew, lag_rows, dt);
   return (int)cudaGetLastError();
 }

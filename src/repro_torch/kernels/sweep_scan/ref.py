@@ -47,11 +47,15 @@ class SweepStructure:
     ``edge_off`` (T + 1) with ``edge_src``/``edge_mult`` (E): the in-edges
     of each row in order (edge e's hop latency is column e of ``hops``);
     ``sink_off`` (n_out + 1) with ``sink_rows``: the sink rows of each
-    output.  Index arrays are int32, multipliers float64."""
+    output; ``row_lags`` (and ``row_lag``, on the device): each row's index
+    within its segment, a maximal run of rows that no later row's in-edge
+    reaches back before (one DAG of a stacked fleet batch).  Index arrays
+    are int32, multipliers float64."""
 
     row_slices: Tuple[Tuple[int, int], ...]
     in_edges: Tuple[Tuple[Tuple[int, float], ...], ...]
     sink_groups: Tuple[Tuple[int, ...], ...]
+    row_lags: Tuple[int, ...]
     n_slots: int
     row_off: torch.Tensor
     edge_off: torch.Tensor
@@ -60,6 +64,7 @@ class SweepStructure:
     sink_off: torch.Tensor
     sink_rows: torch.Tensor
     g_task: torch.Tensor      # (G,) int64 owning row of each group
+    row_lag: torch.Tensor     # (T,) int32 row_lags
 
     @property
     def n_rows(self) -> int:
@@ -76,6 +81,11 @@ class SweepStructure:
     @property
     def n_out(self) -> int:
         return len(self.sink_groups)
+
+    @property
+    def lag_rows(self) -> int:
+        """Rows of the longest segment."""
+        return max(self.row_lags) + 1
 
 
 def pack_structure(row_slices: Sequence[Tuple[int, int]],
@@ -109,8 +119,9 @@ def pack_structure(row_slices: Sequence[Tuple[int, int]],
         return torch.tensor(out, dtype=torch.int32, device=device)
 
     g_task = [r for r, (lo, hi) in enumerate(rows) for _ in range(lo, hi)]
+    lags = segment_lags(edges)
     return SweepStructure(
-        row_slices=rows, in_edges=edges, sink_groups=sinks,
+        row_slices=rows, in_edges=edges, sink_groups=sinks, row_lags=lags,
         n_slots=int(n_slots),
         row_off=torch.tensor([0] + [hi for _, hi in rows], dtype=torch.int32,
                              device=device),
@@ -122,7 +133,27 @@ def pack_structure(row_slices: Sequence[Tuple[int, int]],
         sink_off=offsets(sinks),
         sink_rows=torch.tensor([r for rs in sinks for r in rs],
                                dtype=torch.int32, device=device),
-        g_task=torch.tensor(g_task, dtype=torch.int64, device=device))
+        g_task=torch.tensor(g_task, dtype=torch.int64, device=device),
+        row_lag=torch.tensor(lags, dtype=torch.int32, device=device))
+
+
+def segment_lags(in_edges: Sequence[Sequence[Tuple[int, float]]]
+                 ) -> Tuple[int, ...]:
+    """Each row's index within its segment.  A segment starts at row r when
+    no in-edge of row r or a later row comes from a row before r: the rows
+    from r on never read the rows before it, so the kernel may run them on
+    a lag of their own.  A stacked batch's DAGs (whose in-edges stay inside
+    their own rows) each start one; a connected DAG in topological order
+    is one segment."""
+    first = len(in_edges)      # the earliest source of rows r, r + 1, ...
+    starts = []
+    for r in reversed(range(len(in_edges))):
+        first = min([first] + [s for s, _ in in_edges[r]])
+        starts.append(first >= r)
+    lags: list = []
+    for start in reversed(starts):
+        lags.append(0 if start else lags[-1] + 1)
+    return tuple(lags)
 
 
 def n_samples_of(steps: int, sample_every: int) -> int:

@@ -11,18 +11,19 @@ from the analytic roofline (:mod:`repro_torch.distributed.roofline`) on a
 stated :class:`~repro_torch.distributed.roofline.Hardware`.  MBA picks GPUs
 per stage at each stage's best operating point; SAM gangs each stage's GPUs
 onto exclusive hosts, which is gang scheduling of a model-parallel group on
-one NVLink island.
-
-``plan_serving_fleet`` (many workloads on one host budget) needs the fleet
-planner, which is not carried over yet (see ROADMAP.md).
+one NVLink island.  ``plan_serving_fleet`` shares one host budget across
+many workloads through the fleet planner (:func:`~repro_torch.core.fleet.
+plan_fleet`), with the same ``hardware`` argument as ``plan_serving``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional, Sequence
 
 from ..configs.base import ModelConfig
 from ..core.dag import Dataflow
+from ..core.fleet import FleetPlan, plan_fleet
 from ..core.mapping import (VM_CLASS_FAMILIES, vm_class_family,
                             vm_classes_from_sizes)
 from ..core.perfmodel import PAPER_MODELS, ModelLibrary, PerfModel
@@ -125,3 +126,51 @@ def plan_serving(cfg: ModelConfig, *, request_rate: float, prompt_len: int,
         hosts=len(schedule.vms),
         hardware=hardware,
     )
+
+
+@dataclasses.dataclass
+class ServingWorkload:
+    """One tenant's serving demand for the fleet planner."""
+
+    name: str
+    cfg: ModelConfig
+    prompt_len: int
+    gen_len: int
+    batch: int = 32
+    weight: float = 1.0
+    priority: int = 0
+
+
+def plan_serving_fleet(workloads: Sequence[ServingWorkload], *,
+                       budget_hosts: int, objective: str = "max_min",
+                       allocator: str = "mba", mapper: Optional[str] = "sam",
+                       step: float = 0.25, max_rate: float = 64.0,
+                       hardware: Hardware = H100_SXM) -> FleetPlan:
+    """Share one GPU host budget across many serving workloads.
+
+    Each workload gets its own analytic stage PerfModels on ``hardware``
+    and its own serving DAG (per-DAG model libraries — "prefill" means
+    something different per arch / context length); the fleet planner then
+    jointly picks the admitted request rate per workload under
+    ``objective`` exactly as for stream DAGs: hosts are slots, GPUs are
+    threads, and gang-scheduling a stage's GPUs onto exclusive hosts is
+    SAM on an NVLink island.
+    """
+    dags: Dict[str, Dataflow] = {}
+    libs: Dict[str, ModelLibrary] = {}
+    weights: Dict[str, float] = {}
+    priorities: Dict[str, int] = {}
+    for wl in workloads:
+        if wl.name in dags:
+            raise ValueError(f"duplicate workload name {wl.name!r}")
+        dags[wl.name] = serving_dag(wl.gen_len, name=wl.name)
+        libs[wl.name] = serving_perf_models(
+            wl.cfg, prompt_len=wl.prompt_len, gen_len=wl.gen_len,
+            batch=wl.batch, hardware=hardware)
+        weights[wl.name] = wl.weight
+        priorities[wl.name] = wl.priority
+    return plan_fleet(dags, libs, budget_slots=budget_hosts,
+                      objective=objective, weights=weights,
+                      priorities=priorities, allocator=allocator,
+                      mapper=mapper, step=step, max_rate=max_rate,
+                      vm_sizes=vm_class_family(GPU_HOST_FAMILY))

@@ -17,6 +17,7 @@ card at the same tolerance; the GPU machine has no JAX, so they run there
 with ``--noconftest -m cuda`` (``repro.core`` itself loads without JAX).
 """
 
+import itertools
 from fractions import Fraction
 
 import numpy as np
@@ -326,12 +327,16 @@ def test_launch_shape_fits_the_block(G, S, T, E, L, K, every, warps, skew):
 
 def test_launch_shape_raises_when_one_column_does_not_fit():
     """A structure whose single rate column's state exceeds the 227 KB a
-    block can have, even at skew 1, is refused with the bytes it needs."""
+    block can have, even at skew 1, is no longer refused: its launch lays
+    the same state out in device memory (skew sample_every, every warp)."""
     G, S, T, E, L = 1200, 64, 17, 21, 800
     assert sweep_kernel.shared_bytes(G, S, T, E, 1, 1, L, 1, 1) > \
         sweep_kernel.MAX_SHARED_BYTES
-    with pytest.raises(ValueError, match="shared memory"):
-        sweep_kernel.launch_shape(G, S, T, E, 1, 1, L, 50, 5)
+    got = sweep_kernel.launch_shape(G, S, T, E, 1, 1, L, 50, 5)
+    assert got == (sweep_kernel.MAX_WARPS, 5,
+                   sweep_kernel.shared_bytes(G, S, T, E, 1, 1, L, 5,
+                                             sweep_kernel.MAX_WARPS),
+                   "device")
 
 
 @pytest.mark.parametrize("n, depth", [(1, 1), (2, 2), (7, 8), (16, 16),
@@ -471,3 +476,244 @@ def test_cuda_simulator_matches_reference_numpy(libs):
     assert sweep_kernel.launch_count() == before + 1
     assert_raw_close(got, theirs.sweep_raw(OMEGAS, engine="numpy", **KW))
     assert port_sim.scan_kernel_cache_stats()["compiled"] == 1
+
+
+# -- fleets: a wavefront per DAG -------------------------------------------------
+
+#: (DAGs, slot budget) of the stacked fleets the co-simulation must run:
+#: benchmarks/bench_fleet.py's largest, two past it that fit one block's
+#: shared memory, and one whose state goes to device memory
+FLEETS = {6: 64, 8: 96, 12: 128, 24: 256}
+
+
+@pytest.fixture(scope="module")
+def fleet_batches(libs):
+    """{size: (SweepBatch on the CPU, planned rates)} of ``plan_fleet``
+    (max_min, sam) over bench_fleet.py's cycled seed DAGs."""
+    lib, _ = libs
+    out = {}
+    for size, budget in FLEETS.items():
+        names = itertools.islice(itertools.cycle(port.ALL_DAGS), size)
+        fp = port.plan_fleet({f"{n}{i}": port.ALL_DAGS[n]()
+                              for i, n in enumerate(names)}, lib,
+                             budget_slots=budget, objective="max_min",
+                             mapper="sam")
+        mapped = [e for e in fp.entries.values() if e.schedule is not None]
+        assert len(mapped) == size
+        out[size] = (port.SweepBatch([
+            port.DataflowSimulator(e.dag, e.schedule.allocation,
+                                   e.schedule.mapping, lib, device="cpu")
+            for e in mapped]), np.array([e.omega for e in mapped]))
+    return out
+
+
+def _fleet_shape(batch, K, sample_every, **kw):
+    spec = batch.spec
+    return sweep_kernel.launch_shape(
+        spec.n_groups, len(spec.slots), spec.n_rows,
+        sum(len(e) for e in spec.in_edges), len(spec.sink_groups),
+        sum(len(r) for r in spec.sink_groups), spec.n_groups, K,
+        sample_every, **kw)
+
+
+def test_segment_lags_restart_at_each_dag(fleet_batches):
+    """Each DAG of a stacked batch is one segment: a row's lag is its index
+    within its own DAG, and the longest segment is the largest DAG."""
+    batch, _ = fleet_batches[8]
+    s = pack_structure(batch.spec.row_slices, batch.spec.in_edges,
+                       batch.spec.sink_groups, len(batch.spec.slots),
+                       torch.device("cpu"))
+    want = [r - lo for lo, hi in batch.row_spans for r in range(lo, hi)]
+    assert s.row_lag.tolist() == list(s.row_lags) == want
+    assert s.lag_rows == max(hi - lo for lo, hi in batch.row_spans) == 17
+    sweep_kernel.check_row_order(s)
+
+
+def test_check_row_order_refuses_an_edge_across_segments():
+    cpu = torch.device("cpu")
+    s = pack_structure([(0, 1), (1, 2), (2, 3)], [[], [], [(1, 1.0)]],
+                       [[2]], 1, cpu)
+    assert s.row_lags == (0, 0, 1) and s.lag_rows == 2
+    object.__setattr__(s, "in_edges", ((), (), ((0, 1.0),)))
+    with pytest.raises(ValueError, match="segment"):
+        sweep_kernel.check_row_order(s)
+
+
+@pytest.mark.parametrize("size", [8, 12, 24])
+def test_launch_shape_fits_stacked_fleets(fleet_batches, size):
+    """8 and 12 stacked seed-DAG plans fit one block's shared memory with a
+    wavefront per DAG (with one wavefront over all rows they did not); 24
+    do not, and their launch lays its state out in device memory."""
+    steps, every, s0 = port_sim._sweep_steps(20.0, 0.05, 5.0, 0.25)
+    batch, _ = fleet_batches[size]
+    warps, skew, nbytes, where = _fleet_shape(batch, 9, every, lag_rows=17)
+    assert _fleet_shape(batch, 9, every, lag_rows=batch.spec.n_rows)[3] == \
+        "device"
+    if size == 24:
+        assert (warps, skew, where) == (4, every, "device")
+        assert nbytes > sweep_kernel.MAX_SHARED_BYTES
+    else:
+        assert where == "shared" and nbytes <= sweep_kernel.MAX_SHARED_BYTES
+        assert warps >= 1 and skew in (1, every)
+
+
+def _wave_model(structure, caps, src, frac, slot, hops, *, steps,
+                sample_every, s0, dt, skew):
+    """``sweep_scan.cu``'s wave schedule for one candidate, all K columns
+    at once, in numpy: row r advances tick w - skew * lag in wave w, and
+    rings of the kernel's depths start as NaN.  Every ring entry carries
+    the tick (or sample) that wrote it, and every read asserts it finds the
+    one it wants, so a ring too shallow for the lags fails whatever the
+    data.  The lanes of a wave run together, so no ring entry a row reads
+    in a wave may be written in the same wave by another row (asserted:
+    that would be a race); the busy adds and the output samples run after
+    the rows, as after the kernel's __syncwarp."""
+    rows, edges = structure.row_slices, structure.in_edges
+    lag, TL = structure.row_lags, structure.lag_rows
+    T, (G, K), S = len(rows), caps.shape, structure.n_slots
+    DR = sweep_kernel.ring_depth(skew * (TL - 1) + 1)
+    DB = sweep_kernel.ring_depth(TL)
+    order = np.argsort(slot, kind="stable")
+    pos = np.empty(G, dtype=int)
+    pos[order] = np.arange(G)
+    s_off = np.concatenate([[0], np.cumsum(np.bincount(slot, minlength=S))])
+    e_off = np.concatenate([[0], np.cumsum([len(e) for e in edges])])
+    k_last = [max((lag[r] for r in rs), default=0)
+              for rs in structure.sink_groups]
+    queue, acc, bsy = np.zeros((G, K)), np.zeros((G, K)), np.zeros((S, K))
+    capdt = caps * dt
+    ring_r = np.full((T, DR, K), np.nan)
+    ring_x = np.full((G, DR, K), np.nan)
+    ring_b = np.full((T, DB, K), np.nan)
+    tag_r, tag_x, tag_b = (np.full(a.shape[:2], -1)
+                           for a in (ring_r, ring_x, ring_b))
+    n_out = len(structure.sink_groups)
+    lat = np.full((-(-steps // sample_every), n_out, K), np.nan)
+    for w in range(steps + skew * (TL - 1) if steps else 0):
+        reads, writes = set(), set()     # ring entries this wave touches
+        for row, (lo, hi) in enumerate(rows):
+            t = w - skew * lag[row]
+            if not 0 <= t < steps:
+                continue
+            at = t % DR
+            rate = src[row]
+            if edges[row]:
+                rate = np.zeros(K)
+                for s, mult in edges[row]:
+                    reads.add(("r", s, at))
+                    assert tag_r[s, at] == t
+                    rate = rate + ring_r[s, at] * mult
+            sample, per_task = t % sample_every == 0, np.zeros(K)
+            if hi > lo:
+                total = np.zeros(K)
+                for g in range(lo, hi):
+                    q_len = queue[g] + rate * frac[g] * dt
+                    srv = np.minimum(q_len, capdt[g])
+                    queue[g] = q_len - srv
+                    total = total + srv
+                    pos_cap, cap = caps[g] > 0, np.where(caps[g] > 0,
+                                                         caps[g], 1.0)
+                    if t >= s0:
+                        acc[g] = acc[g] + srv
+                        ring_x[pos[g], at] = np.where(pos_cap, srv / cap, 0.0)
+                        tag_x[pos[g], at] = t
+                    if sample:
+                        per_task = np.where(
+                            pos_cap, per_task + frac[g] * (queue[g] + 1.0)
+                            / cap, per_task)
+                rate = total / dt
+            ring_r[row, at] = rate
+            tag_r[row, at] = t
+            writes.add(("r", row, at))
+            if sample:
+                n_at = (t // sample_every) % DB
+                best = per_task
+                if edges[row]:
+                    up = np.full(K, -np.inf)
+                    for j, (s, _) in enumerate(edges[row]):
+                        reads.add(("b", s, n_at))
+                        assert tag_b[s, n_at] == t // sample_every
+                        up = np.maximum(up, ring_b[s, n_at]
+                                        + hops[e_off[row] + j])
+                    best = per_task + up
+                ring_b[row, n_at] = best
+                tag_b[row, n_at] = t // sample_every
+                writes.add(("b", row, n_at))
+        assert not reads & writes, f"wave {w} races on {reads & writes}"
+        tb = w - skew * (TL - 1)
+        if tb >= s0 and tb >= 0:
+            for s in range(S):
+                for i in range(s_off[s], s_off[s + 1]):
+                    assert tag_x[i, tb % DR] == tb
+                    bsy[s] = bsy[s] + ring_x[i, tb % DR]
+        for i, sinks in enumerate(structure.sink_groups):
+            t = w - skew * k_last[i]
+            if 0 <= t < steps and t % sample_every == 0:
+                n_at = (t // sample_every) % DB
+                m = np.zeros(K)
+                if sinks:
+                    assert all(tag_b[r, n_at] == t // sample_every
+                               for r in sinks)
+                    m = ring_b[sinks[0], n_at]
+                    for r in sinks[1:]:
+                        m = np.maximum(m, ring_b[r, n_at])
+                lat[t // sample_every, i] = m
+    realized = ring_r[:, (steps - 1) % DR] if steps else np.zeros((T, K))
+    return queue, bsy, acc, realized, lat
+
+
+@pytest.mark.parametrize("size, skew", [(8, "launch"), (8, "sample_every"),
+                                        (12, "launch"),
+                                        (12, "sample_every")])
+def test_wave_schedule_with_per_dag_lags_is_numpy_bit_for_bit(
+        fleet_batches, size, skew):
+    """The kernel's schedule on a stacked fleet, each DAG lagged from its
+    own first row and the busy terms added once every DAG's deepest row has
+    finished their tick, gives numpy's engine to the last bit; at the skew
+    the launch takes, and at sample_every with the deeper rings."""
+    batch, planned = fleet_batches[size]
+    spec = batch.spec
+    fracs = np.array([0.4, 0.9, 1.3])
+    omegas = [fracs * w for w in planned]
+    steps, every, s0 = port_sim._sweep_steps(8.0, 0.05, 2.0, 0.25)
+    caps = np.concatenate([effective_capacity_matrix(s.gi, w)
+                           for s, w in zip(batch.sims, omegas)])
+    src = np.concatenate([s.gi.betas[:, None] * w[None, :]
+                          for s, w in zip(batch.sims, omegas)])
+    structure = pack_structure(spec.row_slices, spec.in_edges,
+                               spec.sink_groups, len(spec.slots),
+                               torch.device("cpu"))
+    if skew == "launch":
+        skew = _fleet_shape(batch, len(fracs), every,
+                            lag_rows=structure.lag_rows)[1]
+    else:
+        skew = every
+    assert steps > sweep_kernel.ring_depth(skew * 16 + 1)  # the rings wrap
+    want = port_sim._sweep_numpy(spec, caps, src, steps, every, s0, 0.05)
+    got = _wave_model(structure, caps, src, spec.g_frac, spec.g_slot,
+                      batch._hops_flat, steps=steps, sample_every=every,
+                      s0=s0, dt=0.05, skew=skew)
+    for f, a, b in zip(RAW_FIELDS, got, want):
+        assert a.shape == b.shape, f
+        assert np.array_equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [8, 24])
+def test_cuda_kernel_runs_stacked_fleets(fleet_batches, size):
+    """On the card: a stacked fleet batch in one launch within 1e-10 of the
+    numpy engine, 8 DAGs with their state in shared memory and 24 with it
+    laid out in device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    batch, planned = fleet_batches[size]
+    omegas = [np.array([0.25, 0.75, 1.0, 1.25]) * w for w in planned]
+    kw = dict(duration=10.0, dt=0.05)
+    want = batch.sweep_raw(omegas, engine="numpy", **kw)
+    steps, every, _ = port_sim._sweep_steps(10.0, 0.05, 5.0, 0.25)
+    where = _fleet_shape(batch, 4, every, lag_rows=17)[3]
+    assert where == ("shared" if size == 8 else "device")
+    before = sweep_kernel.launch_count()
+    got = batch.sweep_raw(omegas, device="cuda", **kw)
+    assert sweep_kernel.launch_count() == before + 1
+    assert_raw_close(got, want)
