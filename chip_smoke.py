@@ -6,8 +6,9 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles the flash-attention, SSD-scan and sweep kernels from
-   their csrc/ with nvcc, all at once; prints each kernel function's registers
+2. build: compiles the flash-attention, SSD-scan, sweep and stream-operator
+   kernels from their csrc/ with nvcc, all at once; prints each kernel
+   function's registers
    and spills from ptxas and its count of HMMA (tensor-core) instructions
    from ``cuobjdump -sass`` of the built library, by its demangled name;
 3. kernel vs plain: each kernel's wrapper against its plain PyTorch version
@@ -80,7 +81,30 @@ Phases, each of which exits non-zero on failure:
    the kernel and on numpy: the per-event planned rates and stable verdicts
    must be equal, and the launches equal the co-simulations that ran; one
    ``cosimulate(prove=True)`` prints its engine and proved verdicts.  One
-   ``{"fleet": ...}`` line carries it all.
+   ``{"fleet": ...}`` line carries it all;
+9. stream: the streaming runtime on the card.  (a) The four operator
+   kernels (parse_xml, viete_pi, rolling_digest, external_service) against
+   their plain versions on the card at parts of 1, 7, 16, 33 and 1024
+   tuples of 256 bytes drawn as ``SyntheticSource`` draws them: integers
+   exact, float32 within 1e-6 relative; each timed at a frame's part (16
+   tuples) and at 1024 by profiler device time and CUDA events beside its
+   plain version and its byte bound (they are launch-bound).  (b)
+   ``benchmarks/bench_chaos.py``'s 20-event day (4 tenants on 40 slots, 12
+   frames an event, batch 16, its seeded FaultPlan and the correlated crash
+   of two VMs) through ``LiveFleet`` on a VirtualClock on the card and on
+   the CPU: records, rates, fault timeline, reports, escalations and
+   rebinds equal, and the kernel launches equal the executors' operator
+   calls of their kinds.  (c) The recalibration rails on the card and the
+   CPU: bench_chaos's 2x mis-profiled tables (0.50 -> 0.0909) and
+   tests/test_obs.py's auto-recalibrating fleet (0.357 -> 0.065 at tick
+   0), with sweep launches equal to the co-simulations ``drift`` ran.  (d)
+   Each seed DAG planned at 100 t/s (mba/sam) streams 200 frames of 16 at
+   that rate on the card under a WallClock (throughput, mean and p99
+   latency, stability, shed and timed-out frames, launches a frame), and
+   diamond climbs a ladder of planned rates (100, 1000, 5000, 20000 t/s);
+   one warm diamond frame is traced (device kernels, device and wall ms).
+   Each path runs with the launch counts set to 0 just before and read
+   just after.  One ``{"stream": ...}`` line carries it all.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
@@ -1004,6 +1028,554 @@ def fleet_phase() -> dict:
 
 
 
+#: benchmarks/bench_chaos.py's day: its slot budget, frames an event, batch
+#: and 20-event trace (arrivals, a burst, departures; 4 tenants at most)
+CHAOS_BUDGET, CHAOS_FRAMES, CHAOS_BATCH = 40, 12, 16
+CHAOS_TRACE = (
+    ("arrive", ("lin-a", "linear", 100.0)),
+    ("arrive", ("dia-a", "diamond", 80.0)),
+    ("rate", ("lin-a", 150.0)),
+    ("arrive", ("star-a", "star", 60.0)),
+    ("rate", ("dia-a", 120.0)),
+    ("rate", ("star-a", 90.0)),
+    ("arrive", ("dia-b", "diamond", 60.0)),
+    ("rate", ("lin-a", 200.0)),
+    ("rate", ("dia-a", 150.0)),
+    ("rate", ("star-a", 120.0)),
+    ("rate", ("dia-b", 90.0)),
+    ("rate", ("lin-a", 160.0)),
+    ("depart", "star-a"),
+    ("rate", ("dia-a", 100.0)),
+    ("arrive", ("lin-b", "linear", 70.0)),
+    ("rate", ("dia-b", 60.0)),
+    ("rate", ("lin-a", 100.0)),
+    ("rate", ("lin-b", 50.0)),
+    ("rate", ("dia-a", 80.0)),
+    ("depart", "dia-b"),
+)
+#: the operator kernels, each with the reference body it replaces
+STREAM_KERNELS = {
+    "parse_xml": "src/repro/runtime/operators.py:24",
+    "viete_pi": "src/repro/runtime/operators.py:37",
+    "rolling_digest": "src/repro/runtime/operators.py:52",
+    "external_service": "src/repro/runtime/operators.py:60",
+}
+#: part sizes held against the plain versions; payloads of 256 bytes (§8.3)
+STREAM_PARTS, STREAM_LEN, STREAM_TOL = (1, 7, 16, 33, 1024), 256, 1e-6
+#: the main path's part: one frame of the stream's batch
+STREAM_BATCH = 16
+#: the WallClock stream: each seed DAG planned at and driven at this rate
+STREAM_RATE, STREAM_FRAMES = 100.0, 200
+#: diamond's ladder of planned and offered rates (t/s)
+STREAM_LADDER = (100.0, 1000.0, 5000.0, 20000.0)
+#: tests/test_obs.py's mis-profiled fleet: budget, DAG rate, policy
+AUTO_RECAL = dict(budget=24, rate=4000.0, threshold=0.15, cooldown=2)
+STREAM_REPORT_FIELDS = (
+    "omega", "frames", "tuples", "wall_seconds", "throughput", "mean_latency",
+    "p99_latency", "latency_slope", "stable", "stable_reason", "frames_shed",
+    "frames_timed_out", "frames_failed", "retries", "tuples_lost",
+    "escalated_vms")
+
+
+def chaos_events(core, trace=CHAOS_TRACE):
+    """bench_chaos._events: the trace as the port's events."""
+    for kind, payload in trace:
+        if kind == "arrive":
+            name, dag, demand = payload
+            yield core.DagArrive(name, core.ALL_DAGS[dag](), max_rate=demand)
+        elif kind == "rate":
+            yield core.RateChange(*payload)
+        else:
+            yield core.DagDepart(payload)
+
+
+def chaos_fault_plan(rt):
+    """bench_chaos._fault_plan: the seeded mix (seed 11: 3 operator errors,
+    3 slowdowns, 2 drops on lin-a, dia-a, dia-b) plus the correlated crash
+    of lin-a's first two VMs mid-burst."""
+    seeded = rt.FaultPlan.from_seed(
+        11, dags=["lin-a", "dia-a", "dia-b"], tasks=["b", "c"],
+        horizon_frames=CHAOS_FRAMES * 10, operator_errors=3, slowdowns=3,
+        drops=2)
+    crash = CHAOS_FRAMES * 7 + 4
+    return rt.FaultPlan(faults=seeded.faults + tuple(
+        rt.Fault(rt.FaultKind.VM_CRASH, frame=crash, dag="lin-a", vm_index=i)
+        for i in (0, 1)), seed=seeded.seed)
+
+
+def scaled_library(core, lib, factor: float, scale_static: bool = True):
+    """Every rate of ``lib`` times ``factor``: bench_chaos._doubled, or,
+    with ``scale_static`` off, tests/test_obs.py's _scaled."""
+    out = core.ModelLibrary()
+    for kind in lib.kinds():
+        m = lib[kind]
+        f = factor if (scale_static or not m.static) else 1.0
+        out.add(core.PerfModel(kind, [core.ModelPoint(p.tau, p.rate * f,
+                                                      p.cpu, p.mem)
+                                      for p in m.points], static=m.static))
+    return out
+
+
+def slot_key(s) -> tuple:
+    return (s.vm, s.slot)
+
+
+def stream_report(rep) -> tuple:
+    """Every field of an ExecutionReport; the device frame counts by value
+    (their keys name the device)."""
+    return tuple(getattr(rep, f) for f in STREAM_REPORT_FIELDS) + (
+        tuple(sorted(rep.device_frame_counts.values())),)
+
+
+def enact_record(rec) -> dict:
+    """What two enactments of one day must agree on, wall times aside."""
+    def rebind(i):
+        return ([slot_key(s) for s in i.kept_slots],
+                [slot_key(s) for s in i.restarted_slots],
+                sorted((slot_key(a), slot_key(b))
+                       for a, b in i.transplanted.items()),
+                i.reused_ops, i.fresh_ops)
+
+    def ctl(r):
+        return (r.time, r.kind, r.rates, r.changed, r.threads_migrated,
+                r.threads_total, r.slots_moved, r.stable, r.drift_alerts,
+                r.recalibrated)
+    return dict(
+        controller=ctl(rec.controller), spawned=rec.spawned,
+        retired=rec.retired, untouched=rec.untouched,
+        rebound={n: rebind(i) for n, i in rec.rebound.items()},
+        reports={n: stream_report(r) for n, r in rec.reports.items()},
+        escalations=rec.escalations,
+        repairs=[ctl(r) for r in rec.repairs],
+        recovery={n: stream_report(r)
+                  for n, r in rec.recovery_reports.items()},
+        drift_magnitude=rec.drift_magnitude, drift_alerts=rec.drift_alerts,
+        recalibration=(None if rec.recalibration is None
+                       else ctl(rec.recalibration)))
+
+
+def recording_fleet(rt, *args, **kw):
+    """A LiveFleet that keeps every executor it spawns (retired ones too),
+    so that a run's operator calls can be summed."""
+    fleet = rt.LiveFleet(*args, **kw)
+    spawned, spawn = [], fleet._spawn
+
+    def record(name, sched):
+        ex = spawn(name, sched)
+        spawned.append(ex)
+        return ex
+    fleet._spawn = record
+    return fleet, spawned
+
+
+def kernel_calls(operators, executors) -> dict:
+    """Operator calls of the four kernels' kinds, by kernel."""
+    calls = dict.fromkeys(STREAM_KERNELS, 0)
+    for ex in executors:
+        for kind, n in ex.invocations.items():
+            if kind in operators.KERNEL_OF:
+                calls[operators.KERNEL_OF[kind]] += n
+    return calls
+
+
+def stream_phase(dev: torch.device) -> tuple:
+    """Phase 9; returns the operator kernels' entries of the kernels line
+    and the sweep launches of the runtime's co-simulations."""
+    import repro_torch.core as core
+    import repro_torch.runtime as rt
+    from repro_torch.kernels.stream_ops import kernel as so_kernel
+    from repro_torch.kernels.stream_ops import ref as so_ref
+    from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
+    from repro_torch.runtime import operators
+
+    lib = core.paper_library()
+    cpu = torch.device("cpu")
+    result: dict = {}
+
+    # 9a. the four kernels against their plain versions on the card --------------
+    worst = dict.fromkeys(STREAM_KERNELS, 0.0)
+    for B in STREAM_PARTS:
+        rng = np.random.default_rng(B)                 # SyntheticSource's draw
+        payload = torch.from_numpy(rng.integers(
+            32, 127, size=(B, STREAM_LEN), dtype=np.uint8)).to(dev)
+        value = torch.from_numpy(rng.random(B, dtype=np.float32)).to(dev)
+        tags, checksum = so_kernel.parse_xml_fwd(payload)
+        got = {"viete_pi": so_kernel.viete_pi_fwd(value),
+               "rolling_digest": so_kernel.rolling_digest_fwd(value),
+               "rolling_digest_int": so_kernel.rolling_digest_fwd(checksum),
+               "external_service": so_kernel.external_service_fwd(value)}
+        torch.cuda.synchronize()
+        ref_tags, ref_checksum = so_ref.parse_xml_reference(payload)
+        want = {"viete_pi": so_ref.viete_pi_reference(B, dev),
+                "rolling_digest": so_ref.rolling_digest_reference(value),
+                "rolling_digest_int":
+                    so_ref.rolling_digest_reference(checksum),
+                "external_service":
+                    so_ref.external_service_reference(value)}
+        ok = torch.equal(tags, ref_tags) and torch.equal(checksum,
+                                                         ref_checksum)
+        parts = [f"parse_xml tags+checksum {'exact' if ok else 'DIFFER'} "
+                 f"(tags {int(tags.sum())}, checksum max "
+                 f"{int(checksum.max())})"]
+        for name, g in got.items():
+            w = want[name]
+            diff = (g - w).abs()
+            rel = float((diff / w.abs().clamp_min(1e-30)).max())
+            fine = (g.shape == w.shape and bool(torch.isfinite(g).all())
+                    and bool((diff <= STREAM_TOL * w.abs()).all()))
+            ok &= fine
+            kern = name.replace("_int", "")
+            worst[kern] = max(worst[kern], float(diff.max()))
+            parts.append(f"{name} max_abs_err {float(diff.max()):.3g} "
+                         f"max_rel_err {rel:.3g}")
+        print(f"stream kernel vs plain [B={B}, L={STREAM_LEN}]: "
+              + "; ".join(parts) + f" (ints exact, float32 tol "
+              f"{STREAM_TOL:g} rel) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"a stream operator kernel disagrees with its plain version "
+                 f"at B={B}")
+
+    # timing at the main path's part (a frame of STREAM_BATCH tuples) and
+    # at the largest part
+    timing = {}
+    for B in (STREAM_BATCH, STREAM_PARTS[-1]):
+        rng = np.random.default_rng(B)
+        payload = torch.from_numpy(rng.integers(
+            32, 127, size=(B, STREAM_LEN), dtype=np.uint8)).to(dev)
+        value = torch.from_numpy(rng.random(B, dtype=np.float32)).to(dev)
+        fns = {
+            "parse_xml": (lambda: so_kernel.parse_xml_fwd(payload),
+                          lambda: so_ref.parse_xml_reference(payload),
+                          B * STREAM_LEN + 8 * B),
+            "viete_pi": (lambda: so_kernel.viete_pi_fwd(value),
+                         lambda: so_ref.viete_pi_reference(B, dev), 4 * B),
+            "rolling_digest": (lambda: so_kernel.rolling_digest_fwd(value),
+                               lambda: so_ref.rolling_digest_reference(value),
+                               8 * B),
+            "external_service": (
+                lambda: so_kernel.external_service_fwd(value),
+                lambda: so_ref.external_service_reference(value), 8 * B),
+        }
+        for name, (kern, plain, nbytes) in fns.items():
+            ev = time_abba({"kernel": kern, "plain": plain},
+                           ("plain", "kernel"))
+            k_ms, _ = device_ms(kern, required=False)
+            p_ms, _ = device_ms(plain, required=False)
+            bound_ms, bound_by = bound(0.0, nbytes)
+            timing.setdefault(name, {})[B] = {
+                "ms": k_ms, "event_ms": ev["kernel"], "plain_ms": p_ms,
+                "plain_event_ms": ev["plain"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes}
+            print(f"stream timing [{name}, B={B}]: device ms kernel "
+                  + (f"{k_ms:.6f}" if k_ms is not None else "not measured")
+                  + " plain " + (f"{p_ms:.6f}" if p_ms is not None
+                                 else "not measured")
+                  + f" (profiler, 20 calls); event ms kernel "
+                  f"{ev['kernel']:.6f} plain {ev['plain']:.6f} (ABBA); "
+                  f"bound_ms {bound_ms:.9f} ({bound_by}: {nbytes} B; "
+                  f"launch-bound)", flush=True)
+    result["timing"] = {n: {str(b): t for b, t in v.items()}
+                        for n, v in timing.items()}
+
+    # 9b. the chaos day on the card and on the CPU ----------------------------------
+    days, launches_by_path = {}, {}
+    for device in (dev, cpu):
+        fleet, spawned = recording_fleet(
+            rt, core.FleetController(lib, budget_slots=CHAOS_BUDGET),
+            fault_plan=chaos_fault_plan(rt), clock=rt.VirtualClock(),
+            frames_per_event=CHAOS_FRAMES, batch=CHAOS_BATCH, device=device)
+        so_kernel.reset_launch_count()
+        t0 = time.perf_counter()
+        for i, ev in enumerate(chaos_events(core)):
+            fleet.apply(ev, at=float(i))
+        if device == dev:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        days[device.type] = (fleet, so_kernel.launch_count(),
+                        kernel_calls(operators, spawned), wall)
+    (fc, lc, calls_c, wall_c), (fh, lh, calls_h, wall_h) = \
+        days[dev.type], days["cpu"]
+    same = (fc.log.rates_sequence() == fh.log.rates_sequence()
+            and fc.log.timeline.signature() == fh.log.timeline.signature()
+            and [enact_record(r) for r in fc.log.records]
+            == [enact_record(r) for r in fh.log.records])
+    ok = same and lc == calls_c and calls_c == calls_h and \
+        sum(lh.values()) == 0 and sum(lc.values()) > 0
+    reports = [r for rec in fc.log.records
+               for r in (*rec.reports.values(),
+                         *rec.recovery_reports.values())]
+    esc = [e for rec in fc.log.records for e in rec.escalations]
+    launches_by_path["chaos_day"] = lc
+    result["chaos_day"] = {
+        "events": len(fc.log), "faults_injected": len(fc.log.timeline),
+        "windows": len(reports),
+        "frames_shed": sum(r.frames_shed for r in reports),
+        "retries": sum(r.retries for r in reports),
+        "frames_failed": sum(r.frames_failed for r in reports),
+        "tuples_lost": sum(r.tuples_lost for r in reports),
+        "escalations": [[d, v] for d, v in esc],
+        "equal_to_cpu": same, "launches": lc, "operator_calls": calls_c,
+        "wall_s_card": wall_c, "wall_s_cpu": wall_h}
+    print(f"chaos day [bench_chaos: {len(fc.log)} events, "
+          f"{CHAOS_BUDGET} slots, {CHAOS_FRAMES} frames an event, batch "
+          f"{CHAOS_BATCH}, {len(fc.log.timeline)} faults]: card vs CPU "
+          f"records, rates, fault timeline, reports, escalations {esc} and "
+          f"rebinds equal {same}; launches {lc} = operator calls {calls_c} "
+          f"(CPU run: {sum(lh.values())} launches); wall s card "
+          f"{wall_c:.3f}, CPU {wall_h:.3f} {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        fail("the chaos day on the card disagrees with the CPU run")
+
+    # 9c. the recalibration rails ---------------------------------------------------
+    wrong = scaled_library(core, lib, 2.0)
+    rails = {}
+    for device in (dev, cpu):
+        fleet, spawned = recording_fleet(
+            rt, core.FleetController(wrong, budget_slots=CHAOS_BUDGET),
+            fault_plan=rt.FaultPlan.none(), clock=rt.VirtualClock(),
+            truth=lib, frames_per_event=CHAOS_FRAMES, batch=CHAOS_BATCH,
+            device=device)
+        so_kernel.reset_launch_count()
+        for i, ev in enumerate(chaos_events(core, CHAOS_TRACE[:8])):
+            fleet.apply(ev, at=float(i))
+        launches = so_kernel.launch_count()
+        ms = fleet.measurements()
+        res = core.recalibrate(wrong, ms, alpha=0.9)
+        rails[device.type] = ([(m.kind, m.task, m.tau, m.tuples, m.busy_seconds)
+                          for m in ms], res.error_before, res.error_after,
+                         sorted(res.changed_kinds), launches,
+                         kernel_calls(operators, spawned))
+    (ms_c, before, after, kinds, lc, calls_c), cpu_rail = \
+        rails[dev.type], rails["cpu"]
+    same = rails[dev.type][:4] == cpu_rail[:4]
+    ok = (same and abs(before - 0.5) < 1e-12 and round(after, 4) == 0.0909
+          and lc == calls_c and sum(cpu_rail[4].values()) == 0)
+    launches_by_path["recalibration"] = lc
+    result["recalibration"] = {
+        "samples": len(ms_c), "error_before": before, "error_after": after,
+        "kinds": kinds, "equal_to_cpu": same, "launches": lc}
+    print(f"recalibration [bench_chaos's 2x mis-profiled tables, first 8 "
+          f"events]: {len(ms_c)} samples, rate error {before:.4f} -> "
+          f"{after:.4f} ({len(kinds)} kinds); equal to the CPU run {same}; "
+          f"launches {lc} = operator calls {calls_c} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the recalibration rail on the card disagrees")
+
+    autos = {}
+    for device in (dev, cpu):
+        policy = core.AutoRecalPolicy(threshold=AUTO_RECAL["threshold"],
+                                      cooldown_events=AUTO_RECAL["cooldown"])
+        fleet, spawned = recording_fleet(
+            rt, core.FleetController(
+                scaled_library(core, lib, 2.0, scale_static=False),
+                budget_slots=AUTO_RECAL["budget"]),
+            fault_plan=rt.FaultPlan.none(), clock=rt.VirtualClock(),
+            truth=lib, auto_recal=policy, device=device)
+        cosims, cosimulate = [], fleet.ctl.cosimulate
+
+        def counted(**kw):
+            cosims.append(kw)
+            return cosimulate(**kw)
+        fleet.ctl.cosimulate = counted
+        so_kernel.reset_launch_count()
+        sweep_kernel.reset_launch_count()
+        rec = fleet.apply(core.DagArrive("d1", core.diamond_dag(),
+                                         max_rate=AUTO_RECAL["rate"]), at=0.0)
+        if device == dev:
+            torch.cuda.synchronize()
+        res = fleet.recalibrations[0] if fleet.recalibrations else None
+        autos[device.type] = (
+            enact_record(rec), list(fleet.recal_ticks),
+            res and (res.error_before, res.error_after,
+                     sorted(res.changed_kinds)),
+            so_kernel.launch_count(), kernel_calls(operators, spawned),
+            sweep_kernel.launch_count(), len(cosims))
+    (summary, ticks, errs, lc, calls_c, sweeps, n_cosim), cpu_auto = \
+        autos[dev.type], autos["cpu"]
+    same = autos[dev.type][:3] == cpu_auto[:3]
+    ok = (same and ticks == [0] and errs is not None
+          and round(errs[0], 3) == 0.357 and round(errs[1], 3) == 0.065
+          and lc == calls_c and sweeps == n_cosim > 0
+          and cpu_auto[5] == 0 and sum(cpu_auto[3].values()) == 0)
+    launches_by_path["auto_recal"] = lc
+    result["auto_recal"] = {
+        "drift_magnitude": summary["drift_magnitude"],
+        "drift_alerts": summary["drift_alerts"], "recal_ticks": ticks,
+        "error_before": errs and errs[0], "error_after": errs and errs[1],
+        "equal_to_cpu": same, "launches": lc, "sweep_launches": sweeps,
+        "cosimulations": n_cosim}
+    print(f"auto-recalibration [tests/test_obs.py's mis-profiled diamond at "
+          f"{AUTO_RECAL['rate']:g} t/s]: drift "
+          f"{summary['drift_magnitude']:.4f} > {AUTO_RECAL['threshold']}, "
+          f"{summary['drift_alerts']} alert(s), recalibrated at ticks "
+          f"{ticks}, rate error "
+          + (f"{errs[0]:.4f} -> {errs[1]:.4f}" if errs else "none")
+          + f"; equal to the CPU run {same}; operator launches {lc} = calls "
+          f"{calls_c}; sweep launches {sweeps} = co-simulations {n_cosim} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the auto-recalibration rail on the card disagrees")
+
+    # 9d. the stream on the card under WallClock -------------------------------------
+    def drive(dag: str, rate: float):
+        sched = core.plan(core.ALL_DAGS[dag](), rate, lib, allocator="mba",
+                          mapper="sam")
+        ex = rt.StreamExecutor(sched, lib, clock=rt.WallClock(),
+                               device=dev)
+        so_kernel.reset_launch_count()
+        t0 = time.perf_counter()
+        rep = ex.run(rate, n_frames=STREAM_FRAMES, batch=STREAM_BATCH)
+        wall = time.perf_counter() - t0
+        launches = so_kernel.launch_count()
+        calls = kernel_calls(operators, [ex])
+        if launches != calls:
+            fail(f"stream {dag} at {rate:g} t/s: launches {launches} != "
+                 f"operator calls {calls}")
+        ms = ex.measurements()
+        # the reference's verdict judges the latency slope of the frames
+        # that completed; its source waits for the executor, so a stream
+        # that falls behind shows as lost throughput, not as a rising slope
+        sustained = (rep.stable and rep.frames_shed == 0
+                     and rep.frames_timed_out == 0
+                     and rep.throughput >= 0.95 * rate)
+        row = {"dag": dag, "rate": rate, "slots": len(sched.mapping.slots()),
+               "frames": rep.frames, "throughput": rep.throughput,
+               "mean_latency_s": rep.mean_latency,
+               "p99_latency_s": rep.p99_latency,
+               "latency_slope": rep.latency_slope, "stable": rep.stable,
+               "sustained": sustained,
+               "frames_shed": rep.frames_shed,
+               "frames_timed_out": rep.frames_timed_out, "wall_s": wall,
+               "launches": sum(launches.values()),
+               "launches_per_frame": sum(launches.values()) / rep.frames,
+               "measured_vs_table_rate_error": core.rate_error(lib, ms)}
+        print(f"stream [{dag} at {rate:g} t/s, {row['slots']} slots, "
+              f"{STREAM_FRAMES} frames of {STREAM_BATCH}, WallClock]: "
+              f"throughput {rep.throughput:.3f} t/s, latency mean "
+              f"{rep.mean_latency * 1e3:.3f} ms p99 "
+              f"{rep.p99_latency * 1e3:.3f} ms, stable {rep.stable}, "
+              f"sustained {sustained}, shed "
+              f"{rep.frames_shed}, timed out {rep.frames_timed_out}; "
+              f"{row['launches_per_frame']:.2f} launches a frame; measured "
+              f"service vs the tables {row['measured_vs_table_rate_error']:.3f}"
+              f"; wall {wall:.3f} s", flush=True)
+        return row, ex, launches
+
+    stream_launches = dict.fromkeys(STREAM_KERNELS, 0)
+    rows, diamond_ex = [], None
+    for dag in core.ALL_DAGS:
+        row, ex, launches = drive(dag, STREAM_RATE)
+        rows.append(row)
+        for k, n in launches.items():
+            stream_launches[k] += n
+        if dag == "diamond":
+            diamond_ex = ex
+    ladder = [next(r for r in rows if r["dag"] == "diamond")]
+    for rate in STREAM_LADDER[1:]:
+        row, _, launches = drive("diamond", rate)
+        ladder.append(row)
+        for k, n in launches.items():
+            stream_launches[k] += n
+    launches_by_path["wallclock_stream"] = stream_launches
+    unstable = [r["rate"] for r in ladder if not r["stable"]]
+    unsustained = [r["rate"] for r in ladder if not r["sustained"]]
+    print(f"stream ladder [diamond, planned at each rate]: stable (latency "
+          f"slope) at {[r['rate'] for r in ladder if r['stable']]} t/s, "
+          f"first unstable {unstable[0] if unstable else 'none'}; sustained "
+          f"(stable, nothing shed or timed out, throughput >= 95% of the "
+          f"rate) at {[r['rate'] for r in ladder if r['sustained']]} t/s, "
+          f"first not sustained {unsustained[0] if unsustained else 'none'}",
+          flush=True)
+    if not all(r["sustained"] for r in rows):
+        fail("a seed DAG's stream at its planned 100 t/s is not sustained")
+
+    # one warm diamond frame traced (its waits on the WallClock included)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    source = rt.SyntheticSource(STREAM_RATE, batch=STREAM_BATCH, seed=1,
+                                clock=rt.VirtualClock(), device=dev)
+    frames = source.frames(n_frames=4)
+    diamond_ex.process_frame(next(frames), 0.0)
+    for attempt in (1, 2, 3):     # a trace may come back without the device
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            status, _ = diamond_ex.process_frame(next(frames), 0.0)
+            torch.cuda.synchronize()
+            frame_wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+        print(f"stream frame trace {attempt}: no device kernel", flush=True)
+    by_name: dict = {}
+    for e in kernels:
+        label = kernel_label(e.name)
+        by_name[label] = by_name.get(label, 0.0) + e.time_range.elapsed_us()
+    trace = {"dag": "diamond", "status": status,
+             "device_kernels": len(kernels),
+             "device_ms": (sum(by_name.values()) / 1e3 if kernels
+                           else None), "wall_ms": frame_wall,
+             "kernels_us": by_name}
+    print(f"stream frame trace [diamond at {STREAM_RATE:g} t/s, one warm "
+          f"frame, WallClock executor]: {len(kernels)} device kernels, device "
+          + (f"{trace['device_ms']:.6f} ms" if kernels else "not measured")
+          + f" of {frame_wall:.3f} ms wall ("
+          + ", ".join(f"{k} {v:.3f} us" for k, v in sorted(by_name.items()))
+          + ")", flush=True)
+    if status != "ok":
+        fail("the traced stream frame did not complete")
+    # the frame's host time split: the same warm frames through the
+    # WallClock executor (a synchronisation after every part, the service
+    # waits slept) and through one on a VirtualClock (neither)
+    source = rt.SyntheticSource(STREAM_RATE, batch=STREAM_BATCH, seed=2,
+                                clock=rt.VirtualClock(), device=dev)
+    frames = list(source.frames(n_frames=21))
+    virtual_ex = rt.StreamExecutor(diamond_ex.schedule, lib,
+                                   clock=rt.VirtualClock(), device=dev)
+    split = {}
+    for label, ex in (("wallclock", diamond_ex), ("virtual", virtual_ex)):
+        walls = []
+        for f in frames:
+            t0 = time.perf_counter()
+            ex.process_frame(f, 0.0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        split[label] = float(np.median(walls[1:]))
+    trace["frame_ms_p50"] = split
+    print(f"stream frame split [diamond at {STREAM_RATE:g} t/s, 20 warm "
+          f"frames, median ms]: WallClock executor {split['wallclock']:.3f} "
+          f"(a synchronisation after each part, service waits slept), "
+          f"VirtualClock executor {split['virtual']:.3f} (launches only)",
+          flush=True)
+    result.update(stream=rows, ladder=ladder, frame_trace=trace,
+                  launches_by_path=launches_by_path)
+    print(json.dumps({"stream": result}), flush=True)
+
+    entries = []
+    for name, replaces in STREAM_KERNELS.items():
+        by_path = {path: counts[name]
+                   for path, counts in launches_by_path.items()}
+        t = timing[name][STREAM_BATCH]
+        entries.append({
+            "name": f"{name}_fwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/stream_ops/csrc/stream_ops.cu",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": worst[name],
+            "ms": t["ms"] if t["ms"] is not None else t["event_ms"],
+            "ms_source": ("device (profiler)" if t["ms"] is not None
+                          else "events (the profiler saw no kernel)"),
+            "event_ms": t["event_ms"],
+            "plain_ms": (t["plain_ms"] if t["plain_ms"] is not None
+                         else t["plain_event_ms"]),
+            "plain_event_ms": t["plain_event_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "part_tuples": STREAM_BATCH})
+    return entries, result["auto_recal"]["sweep_launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1017,6 +1589,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
+    from repro_torch.kernels.stream_ops import kernel as stream_kernel
     from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
     from repro_torch.launch.serve import run_serving, scale_config
     from repro_torch.models import Env, get_model
@@ -1040,7 +1613,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together ---------------------------
     sources = {"flash_fwd.cu": kernel, "ssd_fwd.cu": ssd_kernel,
-               "sweep_scan.cu": sweep_kernel}
+               "sweep_scan.cu": sweep_kernel, "stream_ops.cu": stream_kernel}
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = {name: pool.submit(mod.build) for name, mod in sources.items()}
         records = {name: f.result() for name, f in builds.items()}
@@ -1357,6 +1930,12 @@ def main() -> int:
         fleet["fleet_max_abs_err_vs_plain"]
     sweep_entry["fleet_launch_shape"] = fleet["fleet_launch_shape"]
 
+    # 9. stream: the runtime's operator kernels, the chaos day, the
+    # recalibration rails and the stream under WallClock ------------------------
+    stream_entries, runtime_sweeps = stream_phase(dev)
+    sweep_entry["launches"] += runtime_sweeps
+    sweep_entry["launches_by_path"]["runtime"] = runtime_sweeps
+
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -1393,7 +1972,7 @@ def main() -> int:
         "bound_by": ssd_bound_by,
         "library_ms": None,
         "hmma": hmma["ssd_fwd.cu"],
-    }, sweep_entry]}))
+    }, sweep_entry, *stream_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -7,9 +7,10 @@ A copy of the JAX package's ``analysis/verify.py`` (numpy and the port's
 (with ``_verify_group_index``), :func:`verify_fleet_plan` (with
 ``_spot_check_surface`` and the :func:`verify_grid` it runs),
 :func:`verify_rate_decisions`, :func:`verify_trace` and
-:func:`verify_controller`.  The reference's model, enactment,
-calibration, tracer and autorecalibration passes belong to modules the
-port has not carried over and are left out.  Each pass returns a list of
+:func:`verify_controller`, the model-table pass :func:`verify_models`,
+and the runtime's passes: :func:`verify_enactment` (the ``LiveFleet``
+hook), :func:`verify_calibration` (``recalibrate``'s),
+:func:`verify_tracer` and :func:`verify_autorecal`.  Each pass returns a list of
 :class:`~repro_torch.core.diagnostics.Violation`\\ s (empty = clean),
 with the reference's codes (``docs/INVARIANTS.md``).
 
@@ -38,7 +39,7 @@ import numpy as np
 from ..core.dag import Dataflow
 from ..core.diagnostics import Severity, Violation
 from ..core.mapping import make_threads
-from ..core.perfmodel import ModelLibrary
+from ..core.perfmodel import ModelLibrary, PerfModel
 
 #: Relative tolerance for float identities (rates, fractions).
 REL_TOL = 1e-6
@@ -122,6 +123,49 @@ def verify_dag(dag: Dataflow) -> List[Violation]:
 # ---------------------------------------------------------------------------
 # Performance models (paper §5 profiles; §8.5 interpolation).
 # ---------------------------------------------------------------------------
+
+def verify_models(models: ModelLibrary,
+                  kinds: Optional[Iterable[str]] = None,
+                  grid: Optional[np.ndarray] = None) -> List[Violation]:
+    """Profile-table soundness per :class:`PerfModel` (optionally only the
+    ``kinds`` a DAG uses) plus, with ``grid``, planning-grid sanity.
+
+    NOTE: the paper's own Fig. 3 tables are *not* rate- or CPU-monotone in
+    tau (``parse_xml`` rates decline past the peak, ``batch_file_write``
+    CPU dips) — monotonicity of the measured columns is deliberately NOT
+    an invariant; strict tau ordering and positivity are."""
+    out: List[Violation] = []
+    for kind in (sorted(kinds) if kinds is not None else models.kinds()):
+        model: PerfModel = models[kind]
+        art = f"PerfModel[{kind}]"
+        xp = np.asarray(model._xp, dtype=float)
+        if len(xp) < 2 or not np.all(np.diff(xp) > 0) or xp[0] != 0.0:
+            out.append(_v("MOD_TAU_ORDER", Severity.ERROR, art, "_xp",
+                          "thread-count table must be the (0,0) anchor "
+                          "followed by strictly increasing taus; got "
+                          f"{xp.tolist()}"))
+        for field, fp in model._fp.items():
+            fp = np.asarray(fp, dtype=float)
+            if not np.all(np.isfinite(fp)) or np.any(fp < 0):
+                out.append(_v("MOD_NEGATIVE", Severity.ERROR, art,
+                              f"_fp[{field!r}]",
+                              f"{field} column must be finite and >= 0; "
+                              f"got {fp.tolist()}"))
+        for p in model.points:
+            # a profile point measures ONE slot; >100% of it is suspect
+            # (paper §5) but tables are measured data: warn, don't fail
+            if p.cpu > 1.0 + 1e-9 or p.mem > 1.0 + 1e-9:
+                out.append(_v("MOD_RES_OVER_SLOT", Severity.WARNING, art,
+                              f"points[tau={p.tau}]",
+                              f"cpu={p.cpu:g} mem={p.mem:g} exceed one slot"))
+        if not model.static and model.omega_hat <= 0:
+            out.append(_v("MOD_ZERO_PEAK", Severity.ERROR, art, "points",
+                          "non-static model supports no rate at any thread "
+                          "count (omega_hat <= 0)"))
+    if grid is not None:
+        out.extend(verify_grid(np.asarray(grid, dtype=float)))
+    return out
+
 
 def verify_grid(grid: np.ndarray, artifact: str = "grid") -> List[Violation]:
     """§8.5 planning-grid sanity: positive, finite, strictly increasing
@@ -651,3 +695,185 @@ def verify_controller(ctl, *, deep: bool = False,
 # ---------------------------------------------------------------------------
 # Live enactment (runtime layer).
 # ---------------------------------------------------------------------------
+
+def verify_enactment(fleet) -> List[Violation]:
+    """Live-executor ↔ controller coherence (the :class:`LiveFleet`
+    ``validate=`` hook): every mapped controller entry has exactly one
+    executor, each executor enacts the entry's *exact* schedule object
+    (the identity rail), its slot groups cover the schedule's mapping, and
+    its op cache holds one op per (task, slot) group — anything
+    else is ``EXE_DELTA_DIVERGED``.
+
+    Duck-typed on the fleet (``ctl``, ``executors``) so the analysis layer
+    does not import the runtime package.
+    """
+    art = "LiveFleet"
+    out: List[Violation] = []
+    ctl = fleet.ctl
+    executors = fleet.executors
+    mapped = {n for n in ctl.dag_names if ctl.entry(n).schedule is not None}
+    extra = sorted(set(executors) - mapped)
+    missing = sorted(mapped - set(executors))
+    if extra:
+        out.append(_v("EXE_DELTA_DIVERGED", Severity.ERROR, art, "executors",
+                      f"executors {extra} have no mapped controller entry "
+                      "(retire delta not enacted)"))
+    if missing:
+        out.append(_v("EXE_DELTA_DIVERGED", Severity.ERROR, art, "executors",
+                      f"mapped DAGs {missing} have no executor "
+                      "(spawn delta not enacted)"))
+    for name in sorted(mapped & set(executors)):
+        ex = executors[name]
+        sched = ctl.entry(name).schedule
+        path = f"executors[{name!r}]"
+        if ex.schedule is not sched:
+            out.append(_v("EXE_DELTA_DIVERGED", Severity.ERROR, art,
+                          f"{path}.schedule",
+                          "executor schedule is not the controller entry's "
+                          "schedule object (delta applied to a copy or "
+                          "not applied)"))
+            continue
+        want_slots = set(sched.mapping.slots())
+        have_slots = {s for g in ex.groups.values() for s in g}
+        if have_slots != want_slots:
+            out.append(_v("EXE_DELTA_DIVERGED", Severity.ERROR, art,
+                          f"{path}.groups",
+                          f"executor slot groups cover {sorted(map(repr, have_slots))} "
+                          f"but the schedule maps {sorted(map(repr, want_slots))}"))
+        want_ops = {(task, slot) for task, g in ex.groups.items()
+                    for slot in g}
+        have_ops = set(ex._ops)
+        if have_ops != want_ops:
+            stale = sorted(f"{t}@{s!r}" for t, s in have_ops - want_ops)
+            absent = sorted(f"{t}@{s!r}" for t, s in want_ops - have_ops)
+            out.append(_v("EXE_DELTA_DIVERGED", Severity.ERROR, art,
+                          f"{path}._ops",
+                          "op cache diverges from the slot groups"
+                          + (f"; stale {stale}" if stale else "")
+                          + (f"; missing {absent}" if absent else "")))
+        undevised = sorted(repr(s) for s in want_slots
+                           if s not in ex.slot_device)
+        if undevised:
+            out.append(_v("EXE_DELTA_DIVERGED", Severity.ERROR, art,
+                          f"{path}.slot_device",
+                          f"mapped slots {undevised} have no device pin"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Measured-model recalibration (calibrate layer).
+# ---------------------------------------------------------------------------
+
+def verify_calibration(before: ModelLibrary, result) -> List[Violation]:
+    """Interpolation-soundness of a recalibrated library
+    (:func:`repro_torch.core.calibrate.recalibrate`'s ``validate=`` hook).
+
+    A recalibration is a uniform positive rescale of each kind's rate
+    column: the thread-count grid, CPU/memory columns, ``static`` flags,
+    and the *shape* of the rate profile (the sign pattern of successive
+    rate differences, which the interpolated ``I`` and its integer-grid
+    inverse ``T`` rely on) must survive — any break is
+    ``CAL_TABLE_NONMONOTONE``.
+    """
+    art = "CalibrationResult"
+    out: List[Violation] = []
+    after = result.library
+    if set(after.kinds()) != set(before.kinds()):
+        out.append(_v("CAL_TABLE_NONMONOTONE", Severity.ERROR, art,
+                      "library",
+                      f"recalibrated kinds {sorted(after.kinds())} != "
+                      f"original kinds {sorted(before.kinds())}"))
+        return out
+    for kind in sorted(before.kinds()):
+        old, new = before[kind], after[kind]
+        path = f"library[{kind!r}]"
+        if new.static != old.static:
+            out.append(_v("CAL_TABLE_NONMONOTONE", Severity.ERROR, art, path,
+                          "recalibration flipped the static flag"))
+        old_taus = [p.tau for p in old.points]
+        new_taus = [p.tau for p in new.points]
+        if new_taus != old_taus:
+            out.append(_v("CAL_TABLE_NONMONOTONE", Severity.ERROR, art, path,
+                          f"thread-count grid changed {old_taus} -> "
+                          f"{new_taus} (recalibration only rescales rates)"))
+            continue
+        rates = np.array([p.rate for p in new.points], dtype=float)
+        if not np.all(np.isfinite(rates)) or np.any(rates <= 0):
+            out.append(_v("CAL_TABLE_NONMONOTONE", Severity.ERROR, art, path,
+                          f"recalibrated rates {rates.tolist()} must be "
+                          "positive and finite"))
+            continue
+        for field in ("cpu", "mem"):
+            if any(getattr(n, field) != getattr(o, field)
+                   for n, o in zip(new.points, old.points)):
+                out.append(_v("CAL_TABLE_NONMONOTONE", Severity.ERROR, art,
+                              path,
+                              f"recalibration changed the {field} column "
+                              "(only rates are measured)"))
+        old_sign = np.sign(np.diff([p.rate for p in old.points]))
+        new_sign = np.sign(np.diff(rates))
+        if len(old_sign) and not np.array_equal(old_sign, new_sign):
+            out.append(_v("CAL_TABLE_NONMONOTONE", Severity.ERROR, art, path,
+                          "rate-profile shape changed: successive-difference "
+                          f"signs {old_sign.tolist()} -> {new_sign.tolist()} "
+                          "(a uniform positive rescale preserves them)"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Telemetry (obs layer).
+# ---------------------------------------------------------------------------
+
+def verify_tracer(tracer) -> List[Violation]:
+    """Well-formedness of a :class:`repro_torch.obs.trace.Tracer` timeline.
+
+    * ``OBS_SPAN_UNCLOSED`` — the calling thread still has open spans: an
+      instrumentation site entered a span and never exited (an exception
+      path that bypassed ``__exit__``, or a hand-opened span leaked).
+    * ``OBS_SPAN_NEGATIVE`` — a closed span's end precedes its start,
+      which under the shared clock seam means the clock was swapped
+      mid-span (timestamps from two different clocks were mixed).
+    """
+    art = "Tracer"
+    out: List[Violation] = []
+    open_names = tracer.open_spans()
+    if open_names:
+        out.append(_v("OBS_SPAN_UNCLOSED", Severity.ERROR, art, "open",
+                      f"{len(open_names)} span(s) still open on this "
+                      f"thread: {open_names}"))
+    for i, span in enumerate(tracer.spans):
+        if span.t1 < span.t0:
+            out.append(_v("OBS_SPAN_NEGATIVE", Severity.ERROR, art,
+                          f"spans[{i}]",
+                          f"span {span.name!r} ends before it starts "
+                          f"(t0={span.t0!r}, t1={span.t1!r}) — clocks "
+                          "mixed mid-span?"))
+    return out
+
+
+def verify_autorecal(fleet) -> List[Violation]:
+    """Thrash-freedom of the closed recalibration loop
+    (:class:`repro_torch.runtime.enact.LiveFleet` with an ``AutoRecalPolicy``).
+
+    ``CAL_AUTO_RECAL_LOOP`` fires when two recorded recalibrations sit
+    closer together (in controller events) than the policy's
+    ``cooldown_events`` — the loop is reacting to its own corrections,
+    i.e. oscillating drift is thrashing the planning tables.
+    """
+    art = "LiveFleet"
+    out: List[Violation] = []
+    policy = getattr(fleet, "auto_recal", None)
+    ticks = list(getattr(fleet, "recal_ticks", ()))
+    if policy is None or len(ticks) < 2:
+        return out
+    for i in range(1, len(ticks)):
+        gap = ticks[i] - ticks[i - 1]
+        if gap < policy.cooldown_events:
+            out.append(_v(
+                "CAL_AUTO_RECAL_LOOP", Severity.ERROR, art,
+                f"recal_ticks[{i}]",
+                f"recalibrations at event ticks {ticks[i - 1]} and "
+                f"{ticks[i]} are {gap} events apart, inside the "
+                f"{policy.cooldown_events}-event cooldown — the loop is "
+                "chasing its own corrections"))
+    return out

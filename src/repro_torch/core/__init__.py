@@ -6,8 +6,10 @@ whose sweep engine runs on the card (``simulator``), the
 simulation-guided mapper search (``search``), the end-to-end ``plan``,
 failure replans and ``max_planned_rate`` (``scheduler``), multi-DAG fleet
 planning and co-simulation (``fleet``), the online fleet controller
-(``online``) and the typed plan-integrity diagnostics behind the
-``validate=`` hooks (``diagnostics``)."""
+(``online``), measured-model recalibration and drift detection
+(``calibrate``), the live and analytic profilers (``profiler``) and the
+typed plan-integrity diagnostics behind the ``validate=`` hooks
+(``diagnostics``)."""
 
 from .diagnostics import (PlanIntegrityError, Report, Severity, Violation,
                           default_validate, raise_if_errors, resolve_validate,
@@ -42,6 +44,9 @@ from .fleet import (FleetEntry, FleetPlan, FleetSimEntry, FleetSimReport,
 from .online import (ControllerLog, ControllerRecord, DagArrive, DagDepart,
                      Event, EventTrace, FleetController, ModelRefresh,
                      RateChange, VmAdd, VmFail)
+from .calibrate import (AutoRecalPolicy, CalibrationResult, DriftAlert,
+                        KindCalibration, TaskMeasurement, detect_drift,
+                        rate_error, recalibrate)
 from .simulator import (DataflowSimulator, SimResult, SweepBatch, SweepRaw,
                         measured_resources, scan_kernel_cache_clear,
                         scan_kernel_cache_stats)

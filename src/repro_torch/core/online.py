@@ -35,12 +35,13 @@ one at a time with :meth:`FleetController.apply`:
                 the new ceiling (``None`` removes the cap), releasing — or
                 reclaiming — budget for the rest of the fleet.
 ``ModelRefresh`` the planning tables were replaced (recalibration from
-                measured rates, in the reference's ``core/calibrate.py``):
+                measured rates, see :mod:`repro_torch.core.calibrate`):
                 every live DAG's slot surface is recomputed against the new
                 models and every schedule is rebuilt on its incumbent VMs.
-                :meth:`FleetController.recalibrate` is the entry point (the
-                reference's ``LiveFleet``, which fires it from its drift
-                alerts, belongs to the streaming runtime, not ported yet).
+                :meth:`FleetController.recalibrate` is the usual entry
+                point; ``LiveFleet`` (:mod:`repro_torch.runtime.enact`)
+                fires it automatically from its own ``DriftAlert`` stream
+                when given an ``AutoRecalPolicy``.
 
 Incremental replanning
 ----------------------

@@ -2,7 +2,7 @@
 
 Every timestamp the telemetry layer records — span start/stop, metric
 sample times, profiler trial durations — is read through this module so
-that installing a :class:`repro.runtime.stream.VirtualClock` makes the
+that installing a :class:`repro_torch.runtime.stream.VirtualClock` makes the
 whole telemetry surface bit-deterministic under a chaos seed.
 
 The seam is deliberately tiny: a process-wide slot holding either

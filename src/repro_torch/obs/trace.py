@@ -2,7 +2,7 @@
 
 A :class:`Tracer` records closed spans ``(name, t0, t1, depth, attrs)``
 with timestamps read through :mod:`repro_torch.obs.clock`, so a trace captured
-under a :class:`~repro.runtime.stream.VirtualClock` is bit-deterministic
+under a :class:`~repro_torch.runtime.stream.VirtualClock` is bit-deterministic
 for a given chaos seed: :meth:`Tracer.signature` over two replays of the
 same seed compares equal.
 

@@ -47,9 +47,29 @@ def test_importing_the_launcher_loads_neither_jax_nor_repro():
 
 
 def test_entry_points_without_a_device_refuse_the_cpu(monkeypatch):
+    """Without a card the entry points raise rather than run on the CPU:
+    the serving path's, and the streaming runtime's ``StreamExecutor``,
+    ``LiveFleet`` and ``SyntheticSource`` (which would otherwise run their
+    operators' plain versions)."""
+    import repro_torch.core as core
+    import repro_torch.runtime as rt
+
+    lib = core.paper_library()
+    sched = core.plan(core.diamond_dag(), 80.0, lib, allocator="mba",
+                      mapper="sam")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         default_env()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init(get_config("minicpm-2b"), torch.Generator())
     assert default_env("cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.StreamExecutor(sched, lib, clock=rt.VirtualClock())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.LiveFleet(core.FleetController(lib, budget_slots=12))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rt.SyntheticSource(100.0)
+    ex = rt.StreamExecutor(sched, lib, clock=rt.VirtualClock(), device="cpu")
+    assert {str(d) for d in ex.slot_device.values()} == {"cpu"}
+    assert rt.LiveFleet(core.FleetController(lib, budget_slots=12),
+                        device="cpu").device.type == "cpu"
