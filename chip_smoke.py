@@ -84,11 +84,18 @@ Phases, each of which exits non-zero on failure:
    ``{"fleet": ...}`` line carries it all;
 9. stream: the streaming runtime on the card.  (a) The four operator
    kernels (parse_xml, viete_pi, rolling_digest, external_service) against
-   their plain versions on the card at parts of 1, 7, 16, 33 and 1024
-   tuples of 256 bytes drawn as ``SyntheticSource`` draws them: integers
-   exact, float32 within 1e-6 relative; each timed at a frame's part (16
-   tuples) and at 1024 by profiler device time and CUDA events beside its
-   plain version and its byte bound (they are launch-bound).  (b)
+   their plain versions on the card at parts of 1, 7, 16, 32, 33 and 1024
+   tuples of 256 bytes drawn as ``SyntheticSource`` draws them, a part of
+   16 negative values and one whose service chain wraps at 1000, the
+   digest on the float, the checksum and the negated checksum columns:
+   every output equal (tolerance 0).  Each
+   is timed at a frame's part (16 tuples) and at 1024 by profiler device
+   time and CUDA events beside its plain version, its roofline bound
+   (bytes, and its FP32-rate operations), and its latency floor: its
+   dependent chain's steps at the cycles ``chain_probe.cu`` measures for
+   each kind of step, at the SM clock nvidia-smi reports, plus an empty
+   kernel's device time.  The host's launch path is split piece by piece
+   (ns a call over 10,000 calls at 16 tuples).  (b)
    ``benchmarks/bench_chaos.py``'s 20-event day (4 tenants on 40 slots, 12
    frames an event, batch 16, its seeded FaultPlan and the correlated crash
    of two VMs) through ``LiveFleet`` on a VirtualClock on the card and on
@@ -135,6 +142,10 @@ PEAK_BF16 = 989e12
 HBM_BW = 3.35e12
 # FP64 outside the tensor cores (the sweep kernel's scalar float64 work)
 PEAK_FP64 = 34e12
+# FP32 outside the tensor cores (the stream operators' scalar work; their
+# integer operations are counted at this rate too, the data sheet giving
+# no int32 rate)
+PEAK_FP32 = 67e12
 
 ARCHS = ("minicpm-2b", "mamba2-370m", "zamba2-1.2b")
 REQUESTS, PROMPT_LEN, NEW_TOKENS, MAX_BATCH, SEED = 8, 1024, 32, 4, 0
@@ -1060,10 +1071,20 @@ STREAM_KERNELS = {
     "rolling_digest": "src/repro/runtime/operators.py:52",
     "external_service": "src/repro/runtime/operators.py:60",
 }
-#: part sizes held against the plain versions; payloads of 256 bytes (§8.3)
-STREAM_PARTS, STREAM_LEN, STREAM_TOL = (1, 7, 16, 33, 1024), 256, 1e-6
+#: part sizes held against the plain versions, bit for bit; payloads of
+#: 256 bytes (§8.3); and the size of the special parts (negative values,
+#: a service key whose chain wraps at 1000)
+STREAM_PARTS, STREAM_LEN, STREAM_SPECIAL = (1, 7, 16, 32, 33, 1024), 256, 16
 #: the main path's part: one frame of the stream's batch
 STREAM_BATCH = 16
+#: calls timed for each piece of a launch's host path
+LAUNCH_PATH_CALLS = 10_000
+#: dependent steps the chain probe times for each kind
+PROBE_STEPS = 1024
+#: chain_probe.cu's step kinds, in its enum's order
+PROBE_KINDS = ("service_step", "service_first_step", "service_fast_step",
+               "viete_step", "fadd", "digest_step", "shfl_iadd", "iadd",
+               "fdiv")
 #: the WallClock stream: each seed DAG planned at and driven at this rate
 STREAM_RATE, STREAM_FRAMES = 100.0, 200
 #: diamond's ladder of planned and offered rates (t/s)
@@ -1178,31 +1199,177 @@ def kernel_calls(operators, executors) -> dict:
     return calls
 
 
-def stream_phase(dev: torch.device) -> tuple:
-    """Phase 9; returns the operator kernels' entries of the kernels line
-    and the sweep launches of the runtime's co-simulations."""
-    import repro_torch.core as core
-    import repro_torch.runtime as rt
+def build_chain_probe() -> dict:
+    """Build (if needed) and load ``chain_probe.cu``; its record's
+    ``bound`` holds ``probe`` and ``empty``, their entry points."""
+    import ctypes
+    from repro_torch.kernels.nvcc import build_library
+    from repro_torch.kernels.stream_ops import kernel as so_kernel
+    P, I = ctypes.c_void_p, ctypes.c_int
+    rec = build_library(so_kernel.CSRC.parent / "chain_probe.cu",
+                        "repro_chain_probe", [I, I, ctypes.c_float, P, P, I, P])
+    empty = rec["lib"].repro_stream_empty
+    empty.restype, empty.argtypes = I, [I, P]
+    rec["bound"] = {"probe": rec["fn"], "empty": empty}
+    return rec
+
+
+def stream_probe(dev: torch.device) -> dict:
+    """Cycles per dependent step of each of ``chain_probe.cu``'s kinds (the
+    least of three runs of PROBE_STEPS steps), an empty kernel's device ms
+    and the SM clock nvidia-smi reports."""
+    bound = build_chain_probe()["bound"]
+    index = dev.index or 0
+    cycles_t = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.float32, device=dev)
+    cycles = {}
+    for which, kind in enumerate(PROBE_KINDS):
+        runs = []
+        for _ in range(3):
+            err = bound["probe"](which, PROBE_STEPS, 1.5, cycles_t.data_ptr(),
+                                 sink.data_ptr(), index,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                fail(f"chain probe {kind}: cudaError_t {err}")
+            torch.cuda.synchronize()
+            runs.append(int(cycles_t.item()) / PROBE_STEPS)
+        cycles[kind] = min(runs)
+
+    def empty():
+        err = bound["empty"](index, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            fail(f"empty kernel: cudaError_t {err}")
+    empty_ms, _ = device_ms(empty, iters=50, required=False)
+    source = "device (profiler)"
+    if empty_ms is None:
+        empty_ms, source = time_ms(empty, iters=50), "events"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    sm_now, sm_max = (float(x) for x in smi[0].split(","))
+    print(f"chain probe [{PROBE_STEPS} dependent steps, one warp, clock64, "
+          f"least of 3]: cycles a step "
+          + ", ".join(f"{k} {v:.2f}" for k, v in cycles.items())
+          + f"; empty kernel {empty_ms:.7f} ms ({source}, 50 calls); SM "
+          f"clock {sm_now:.0f} MHz now, {sm_max:.0f} MHz max (the floors use "
+          f"the max)", flush=True)
+    return {"cycles": cycles, "empty_ms": empty_ms, "empty_ms_source": source,
+            "clock_hz": sm_max * 1e6, "clock_sm_mhz_now": sm_now}
+
+
+def stream_chain(name: str, B: int) -> dict:
+    """The dependent steps on a stream kernel's critical path, by
+    ``chain_probe.cu`` kind, as stream_ops.cu runs them (the first load's
+    latency and the loop bookkeeping not included)."""
+    from repro_torch.kernels.stream_ops.ref import (PI_ITERATIONS, SCAN_TILE,
+                                                    SERVICE_WORK, SUM_WINDOW)
+    if name == "parse_xml":               # a lane's bytes, then 5 shuffles
+        return {"iadd": -(-STREAM_LEN // 32), "shfl_iadd": 5}
+    if name == "viete_pi":                # sqrt(2), 14 steps, 2 / prod
+        return {"viete_step": PI_ITERATIONS, "fdiv": 1}
+    if name == "external_service":        # a lane's windows, then the chain
+        adds, n = 0, B                    # (its path for keys that do not
+        while n > SUM_WINDOW:             # wrap: the seeded parts')
+            windows = -(-n // SUM_WINDOW)
+            adds += -(-windows // 32) * SUM_WINDOW
+            n = windows
+        return {"fadd": adds + n, "service_first_step": 1,
+                "service_fast_step": SERVICE_WORK - 1}
+    if B <= SCAN_TILE:                    # lane 0's running sum
+        return {"fadd": B - 1, "digest_step": 1}
+    lens = [B]
+    while lens[-1] > SCAN_TILE:
+        lens.append(-(-lens[-1] // SCAN_TILE))
+    tiles = [-(-n // 32) * SCAN_TILE for n in lens[1:]]   # a lane's values
+    adds = (sum(tiles)                    # down: the tile totals
+            + lens[-1]                    # the top level, lane 0
+            + 2 * sum(tiles[1:])          # up: running add, offset add
+            + tiles[0] - 1)               # the part: running adds
+    return {"fadd": adds, "digest_step": 1}
+
+
+def launch_path_split(dev: torch.device) -> dict:
+    """ns a call of each piece of a stream kernel's host path at a frame's
+    part, over LAUNCH_PATH_CALLS calls each on the host clock, beside the
+    alternatives the wrappers do without."""
+    import threading
+    from repro_torch.kernels.nvcc import check_operand
+    from repro_torch.kernels.stream_ops import kernel as so_kernel
+    value = torch.rand(STREAM_BATCH, device=dev)
+    out = torch.empty_like(value)
+    bound = so_kernel.build()["bound"]
+    index = dev.index or 0
+    raw = bound["stream"]
+    lock, counted = threading.Lock(), {"n": 0}
+
+    def count():
+        with lock:
+            counted["n"] += 1
+
+    def launch():
+        bound["external_service"](value.data_ptr(), STREAM_BATCH, 64,
+                                  out.data_ptr(), index, raw(index))
+    pieces = {
+        "external_service_fwd whole": lambda: so_kernel.external_service_fwd(
+            value),
+        "viete_pi_fwd whole": lambda: so_kernel.viete_pi_fwd(value),
+        "ctypes call (the launch)": launch,
+        "stream: raw getter": lambda: raw(index),
+        "stream: torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "entry: dict read": lambda: so_kernel._LIB.get("bound"),
+        "entry: build() under the lock": so_kernel.build,
+        "count: lock and add": count,
+        "checks: by device index": lambda: so_kernel._operand(
+            "v", value, (torch.float32,), 1),
+        "checks: check_operand vs a torch.device": lambda: check_operand(
+            "v", value, torch.float32, dev, align=4),
+        "output: empty_like": lambda: torch.empty_like(value),
+        "output: empty(device=dev)": lambda: torch.empty(
+            (STREAM_BATCH,), dtype=torch.float32, device=dev),
+    }
+    ns = {}
+    for name, fn in pieces.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(LAUNCH_PATH_CALLS):
+            fn()
+        ns[name] = (time.perf_counter_ns() - t0) / LAUNCH_PATH_CALLS
+        torch.cuda.synchronize()
+    print(f"stream launch path [B={STREAM_BATCH}, ns a call, "
+          f"{LAUNCH_PATH_CALLS} calls each, host clock]: "
+          + "; ".join(f"{k} {v:.0f}" for k, v in ns.items()), flush=True)
+    return ns
+
+
+def stream_kernel_phase(dev: torch.device) -> tuple:
+    """Phase 9a: the four operator kernels against their plain versions on
+    the card, to 0, then timed beside their bounds, latency floors and the
+    host's launch path.  Returns each kernel's largest error and the
+    timings."""
     from repro_torch.kernels.stream_ops import kernel as so_kernel
     from repro_torch.kernels.stream_ops import ref as so_ref
-    from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
-    from repro_torch.runtime import operators
 
-    lib = core.paper_library()
-    cpu = torch.device("cpu")
-    result: dict = {}
-
-    # 9a. the four kernels against their plain versions on the card --------------
     worst = dict.fromkeys(STREAM_KERNELS, 0.0)
-    for B in STREAM_PARTS:
+    special = {"seeded": lambda v: v,
+               "values * 1000 - 700": lambda v: v * 1000.0 - 700.0,
+               "all 61.0, a key whose chain wraps": lambda v:
+                   torch.full_like(v, 61.0)}
+    for B, kind in (*((b, "seeded") for b in STREAM_PARTS),
+                    *((STREAM_SPECIAL, k) for k in list(special)[1:])):
         rng = np.random.default_rng(B)                 # SyntheticSource's draw
         payload = torch.from_numpy(rng.integers(
             32, 127, size=(B, STREAM_LEN), dtype=np.uint8)).to(dev)
-        value = torch.from_numpy(rng.random(B, dtype=np.float32)).to(dev)
+        value = special[kind](torch.from_numpy(
+            rng.random(B, dtype=np.float32)).to(dev))
         tags, checksum = so_kernel.parse_xml_fwd(payload)
         got = {"viete_pi": so_kernel.viete_pi_fwd(value),
                "rolling_digest": so_kernel.rolling_digest_fwd(value),
                "rolling_digest_int": so_kernel.rolling_digest_fwd(checksum),
+               "rolling_digest_negint":
+                   so_kernel.rolling_digest_fwd(-checksum),
                "external_service": so_kernel.external_service_fwd(value)}
         torch.cuda.synchronize()
         ref_tags, ref_checksum = so_ref.parse_xml_reference(payload)
@@ -1210,33 +1377,36 @@ def stream_phase(dev: torch.device) -> tuple:
                 "rolling_digest": so_ref.rolling_digest_reference(value),
                 "rolling_digest_int":
                     so_ref.rolling_digest_reference(checksum),
+                "rolling_digest_negint":
+                    so_ref.rolling_digest_reference(-checksum),
                 "external_service":
                     so_ref.external_service_reference(value)}
         ok = torch.equal(tags, ref_tags) and torch.equal(checksum,
                                                          ref_checksum)
-        parts = [f"parse_xml tags+checksum {'exact' if ok else 'DIFFER'} "
+        parts = [f"parse_xml tags+checksum {'equal' if ok else 'DIFFER'} "
                  f"(tags {int(tags.sum())}, checksum max "
                  f"{int(checksum.max())})"]
         for name, g in got.items():
             w = want[name]
-            diff = (g - w).abs()
-            rel = float((diff / w.abs().clamp_min(1e-30)).max())
-            fine = (g.shape == w.shape and bool(torch.isfinite(g).all())
-                    and bool((diff <= STREAM_TOL * w.abs()).all()))
-            ok &= fine
-            kern = name.replace("_int", "")
-            worst[kern] = max(worst[kern], float(diff.max()))
-            parts.append(f"{name} max_abs_err {float(diff.max()):.3g} "
-                         f"max_rel_err {rel:.3g}")
-        print(f"stream kernel vs plain [B={B}, L={STREAM_LEN}]: "
-              + "; ".join(parts) + f" (ints exact, float32 tol "
-              f"{STREAM_TOL:g} rel) {'ok' if ok else 'MISMATCH'}", flush=True)
+            same = g.shape == w.shape and torch.equal(g, w)
+            err = float((g - w).abs().max())
+            ok &= same
+            kern = next(k for k in STREAM_KERNELS if name.startswith(k))
+            worst[kern] = max(worst[kern], err)
+            parts.append(f"{name} {'equal' if same else 'DIFFER'} "
+                         f"(max_abs_err {err:.3g})")
+        label = f"B={B}" + ("" if kind == "seeded" else f", {kind}")
+        print(f"stream kernel vs plain [{label}, L={STREAM_LEN}]: "
+              + "; ".join(parts) + f" (tolerance 0) {'ok' if ok else 'MISMATCH'}",
+              flush=True)
         if not ok:
             fail(f"a stream operator kernel disagrees with its plain version "
-                 f"at B={B}")
+                 f"at {label}")
 
-    # timing at the main path's part (a frame of STREAM_BATCH tuples) and
-    # at the largest part
+    # what binds them: the roofline bound beside a latency floor (the
+    # chain's dependent steps at their measured cycles, at the SM clock,
+    # plus an empty kernel's device time), and the host's launch path
+    probe = stream_probe(dev)
     timing = {}
     for B in (STREAM_BATCH, STREAM_PARTS[-1]):
         rng = np.random.default_rng(B)
@@ -1246,34 +1416,66 @@ def stream_phase(dev: torch.device) -> tuple:
         fns = {
             "parse_xml": (lambda: so_kernel.parse_xml_fwd(payload),
                           lambda: so_ref.parse_xml_reference(payload),
-                          B * STREAM_LEN + 8 * B),
+                          B * STREAM_LEN + 8 * B, 4 * B * STREAM_LEN),
             "viete_pi": (lambda: so_kernel.viete_pi_fwd(value),
-                         lambda: so_ref.viete_pi_reference(B, dev), 4 * B),
+                         lambda: so_ref.viete_pi_reference(B, dev), 4 * B,
+                         58 * B),
             "rolling_digest": (lambda: so_kernel.rolling_digest_fwd(value),
                                lambda: so_ref.rolling_digest_reference(value),
-                               8 * B),
+                               8 * B, 2 * B),
             "external_service": (
                 lambda: so_kernel.external_service_fwd(value),
-                lambda: so_ref.external_service_reference(value), 8 * B),
+                lambda: so_ref.external_service_reference(value), 8 * B,
+                B + 3 * so_ref.SERVICE_WORK),
         }
-        for name, (kern, plain, nbytes) in fns.items():
+        for name, (kern, plain, nbytes, ops) in fns.items():
             ev = time_abba({"kernel": kern, "plain": plain},
                            ("plain", "kernel"))
             k_ms, _ = device_ms(kern, required=False)
             p_ms, _ = device_ms(plain, required=False)
-            bound_ms, bound_by = bound(0.0, nbytes)
+            bound_ms, bound_by = bound(ops, nbytes, PEAK_FP32)
+            chain = stream_chain(name, B)
+            cycles = sum(n * probe["cycles"][k] for k, n in chain.items())
+            floor_ms = probe["empty_ms"] + cycles / probe["clock_hz"] * 1e3
             timing.setdefault(name, {})[B] = {
                 "ms": k_ms, "event_ms": ev["kernel"], "plain_ms": p_ms,
                 "plain_event_ms": ev["plain"], "bound_ms": bound_ms,
-                "bound_by": bound_by, "bytes": nbytes}
+                "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                "latency_floor_ms": floor_ms, "chain": chain,
+                "chain_cycles": cycles}
             print(f"stream timing [{name}, B={B}]: device ms kernel "
-                  + (f"{k_ms:.6f}" if k_ms is not None else "not measured")
-                  + " plain " + (f"{p_ms:.6f}" if p_ms is not None
+                  + (f"{k_ms:.7f}" if k_ms is not None else "not measured")
+                  + " plain " + (f"{p_ms:.7f}" if p_ms is not None
                                  else "not measured")
                   + f" (profiler, 20 calls); event ms kernel "
-                  f"{ev['kernel']:.6f} plain {ev['plain']:.6f} (ABBA); "
-                  f"bound_ms {bound_ms:.9f} ({bound_by}: {nbytes} B; "
-                  f"launch-bound)", flush=True)
+                  f"{ev['kernel']:.7f} plain {ev['plain']:.7f} (ABBA); "
+                  f"roofline bound_ms {bound_ms:.10f} ({bound_by}: {nbytes} "
+                  f"B, {ops} FP32-rate ops); latency floor ms "
+                  f"{floor_ms:.7f} (empty kernel {probe['empty_ms']:.7f} + "
+                  f"chain {cycles:.0f} cycles: "
+                  + ", ".join(f"{n} x {k}" for k, n in chain.items())
+                  + f", at {probe['clock_hz'] / 1e6:.0f} MHz)", flush=True)
+    return worst, {"timing": timing, "probe": probe,
+                   "launch_path_ns": launch_path_split(dev)}
+
+
+def stream_phase(dev: torch.device) -> tuple:
+    """Phase 9; returns the operator kernels' entries of the kernels line
+    and the sweep launches of the runtime's co-simulations."""
+    import repro_torch.core as core
+    import repro_torch.runtime as rt
+    from repro_torch.kernels.stream_ops import kernel as so_kernel
+    from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
+    from repro_torch.runtime import operators
+
+    lib = core.paper_library()
+    cpu = torch.device("cpu")
+    result: dict = {}
+
+    # 9a. the four kernels against their plain versions on the card, to 0 ------
+    worst, kernels_9a = stream_kernel_phase(dev)
+    timing = kernels_9a["timing"]
+    result.update(kernels_9a)
     result["timing"] = {n: {str(b): t for b, t in v.items()}
                         for n, v in timing.items()}
 
@@ -1572,6 +1774,7 @@ def stream_phase(dev: torch.device) -> tuple:
                          else t["plain_event_ms"]),
             "plain_event_ms": t["plain_event_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "latency_floor_ms": t["latency_floor_ms"],
             "library_ms": None, "part_tuples": STREAM_BATCH})
     return entries, result["auto_recal"]["sweep_launches"]
 
@@ -1612,14 +1815,18 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
 
     # 2. build: one nvcc per source, started together ---------------------------
-    sources = {"flash_fwd.cu": kernel, "ssd_fwd.cu": ssd_kernel,
-               "sweep_scan.cu": sweep_kernel, "stream_ops.cu": stream_kernel}
+    sources = {"flash_fwd.cu": kernel.build, "ssd_fwd.cu": ssd_kernel.build,
+               "sweep_scan.cu": sweep_kernel.build,
+               "stream_ops.cu": stream_kernel.build,
+               "chain_probe.cu": build_chain_probe}
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        builds = {name: pool.submit(mod.build) for name, mod in sources.items()}
+        builds = {name: pool.submit(fn) for name, fn in sources.items()}
         records = {name: f.result() for name, f in builds.items()}
     hmma, port_kernels = {}, set()
     for name, rec in records.items():
         print(f"build: {name} in {rec['seconds']:.2f} s -> {rec['path']}")
+        if name == "chain_probe.cu":      # measurement only (phase 9a)
+            continue
         report = ptxas_report(str(rec["ptxas"]))
         port_kernels |= {fn.split("<")[0] for fn in report}
         for fn, (regs, st, ld) in sorted(report.items()):

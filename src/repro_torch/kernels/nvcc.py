@@ -4,9 +4,10 @@ Every hand-written kernel of the port takes this route: its ``csrc/*.cu``
 is compiled for ``sm_90a`` into a shared library under
 ``build/repro_torch_kernels/`` in the repository at first use, and its
 entry point is bound with ``ctypes``.  Sources include the shared
-headers of ``kernels/csrc/`` (``tensor_core.cuh``).  The library's name
-carries a hash of the source, those headers and the flags, so an edited
-source or header is rebuilt and a built one is reused; a finished build
+headers of ``kernels/csrc/`` (``tensor_core.cuh``) and may include the
+other sources beside them.  The library's name carries a hash of the
+source, those headers and sources and the flags, so an edited source or
+header is rebuilt and a built one is reused; a finished build
 is moved into place atomically, so processes that build at once agree.
 Nothing is built when this module is imported.
 
@@ -58,8 +59,9 @@ def build_library(csrc: pathlib.Path, entry: str,
     compiler's register/shared-memory report."""
     stem = csrc.stem
     digest = hashlib.sha256(csrc.read_bytes())
-    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    beside = {*csrc.parent.glob("*.cu"), *csrc.parent.glob("*.cuh")} - {csrc}
+    for dep in (*sorted(INCLUDE_DIR.glob("*.cuh")), *sorted(beside)):
+        digest.update(dep.read_bytes())
     digest.update(_FLAGS_KEY)
     tag = digest.hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -5,11 +5,17 @@ shared library with a plain C entry point per kernel at first use and
 loaded with ``ctypes`` (:mod:`repro_torch.kernels.nvcc`).  Nothing is
 built or imported from CUDA when this module is imported.
 
-Each wrapper checks its operands (CUDA, dtype, contiguous), allocates its
-outputs on the operand's device, launches once on PyTorch's current
-stream of that device and counts the launch under its kernel's name
-(:data:`KERNELS`).  A part of zero tuples launches nothing.  The shapes
-and numerics are :mod:`.ref`'s.
+Each wrapper checks its operand (CUDA, dtype, shape, contiguous,
+aligned), allocates its output on the operand's device, launches once on
+PyTorch's current stream of that device and counts the launch under its
+kernel's name (:data:`KERNELS`).  A part of zero tuples launches nothing.
+The shapes and numerics are :mod:`.ref`'s, bit for bit.
+
+A launch costs the card 1-2 us and the host far more, so the per-call
+path is short: the entry points and the stream getter are bound once,
+after the build; a call reads them without a lock, takes its operand's
+device index from the tensor (the output goes to the same device, so no
+two devices are compared) and takes one lock, to count the launch.
 """
 
 from __future__ import annotations
@@ -21,8 +27,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from ..nvcc import build_library, check_operand
-from .ref import PI_ITERATIONS, SERVICE_WORK
+from ..nvcc import build_library
+from .ref import PI_ITERATIONS, SCAN_TILE, SERVICE_WORK
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "stream_ops.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -34,28 +40,35 @@ _ENTRIES = {
     "external_service": ("repro_external_service", [_P, _I, _I, _P, _I, _P]),
 }
 KERNELS = tuple(_ENTRIES)
+#: the dynamic shared memory a block gets without opting in: the digest's
+#: tile totals must fit it
+DIGEST_SHARED_LIMIT = 48 * 1024
 
 _LOCK = threading.Lock()
-#: the loaded library, its build record and its entry points (``fns``)
+#: the loaded library and its build record; ``bound``: the entry points by
+#: kernel name and ``stream`` (device index -> raw stream)
 _LIB: Dict[str, object] = {}
 _launches = dict.fromkeys(KERNELS, 0)
 
 
 def build() -> Dict[str, object]:
     """Compile (if needed) and load the kernel library; returns the build
-    record (``path``, compile ``seconds``, ``ptxas`` report, ``fns``: the
-    four bound entry points by kernel name)."""
+    record (``path``, compile ``seconds``, ``ptxas`` report, ``bound``: the
+    four entry points by kernel name and ``stream``, the stream getter)."""
     with _LOCK:
         if "lib" not in _LIB:
             entry, argtypes = _ENTRIES["parse_xml"]
             record = build_library(CSRC, entry, argtypes)
-            fns = {}
+            bound = {}
             for name, (entry, argtypes) in _ENTRIES.items():
                 fn = getattr(record["lib"], entry)
                 fn.restype = ctypes.c_int
                 fn.argtypes = argtypes
-                fns[name] = fn
-            _LIB.update(record, fns=fns)
+                bound[name] = fn
+            # device index -> the raw cudaStream_t of PyTorch's current
+            # stream there (torch.cuda.current_stream builds a Stream object)
+            bound["stream"] = torch._C._cuda_getCurrentRawStream
+            _LIB.update(record, bound=bound)
         return _LIB
 
 
@@ -72,34 +85,53 @@ def reset_launch_count() -> None:
             _launches[name] = 0
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    fn = build()["fns"][name]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*args, dev.index, stream)
+def _launch(name: str, index: int, *args) -> None:
+    bound = _LIB.get("bound") or build()["bound"]
+    err = bound[name](*args, index, bound["stream"](index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     with _LOCK:
         _launches[name] += 1
 
 
-def _cuda(name: str, t: torch.Tensor) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, {name} is on "
+def _operand(what: str, t: torch.Tensor, dtypes: Tuple[torch.dtype, ...],
+             dim: int) -> int:
+    """The device index of ``t``, once it is a contiguous, element-aligned
+    CUDA tensor of ``dim`` dimensions and one of ``dtypes``; else raise."""
+    if not t.is_cuda:
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, {what} is on "
                          f"{t.device}")
-    return t.device
+    if t.dim() != dim:
+        raise ValueError(f"{what} must have {dim} dimension(s), got "
+                         f"{tuple(t.shape)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected one of "
+                        f"{dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.data_ptr() % t.element_size():
+        raise ValueError(f"{what} must be {t.element_size()}-byte aligned")
+    return t.get_device()
+
+
+def digest_shared_bytes(B: int) -> int:
+    """Shared memory the digest kernel takes for a part of B: the tile
+    totals of every level above the part (stream_ops.cu)."""
+    total = 0
+    while B > SCAN_TILE:
+        B = -(-B // SCAN_TILE)
+        total += B
+    return 4 * total
 
 
 def parse_xml_fwd(payload: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(tags, checksum), each (B,) int32, of a (B, L) uint8 payload."""
-    dev = _cuda("payload", payload)
-    if payload.dim() != 2:
-        raise ValueError(f"payload must be (B, L), got {tuple(payload.shape)}")
-    check_operand("payload", payload, torch.uint8, dev, align=1)
+    index = _operand("payload", payload, (torch.uint8,), 2)
     B, L = payload.shape
-    tags = torch.empty((B,), dtype=torch.int32, device=dev)
-    checksum = torch.empty((B,), dtype=torch.int32, device=dev)
+    tags = payload.new_empty((B,), dtype=torch.int32)
+    checksum = payload.new_empty((B,), dtype=torch.int32)
     if B and L:
-        _launch("parse_xml", dev, payload.data_ptr(), B, L, tags.data_ptr(),
+        _launch("parse_xml", index, payload.data_ptr(), B, L, tags.data_ptr(),
                 checksum.data_ptr())
     else:
         tags.zero_()
@@ -110,27 +142,30 @@ def parse_xml_fwd(payload: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def viete_pi_fwd(value: torch.Tensor,
                  iterations: int = PI_ITERATIONS) -> torch.Tensor:
     """(B,) float32 pi for each of ``value``'s B tuples, on its device."""
-    dev = _cuda("value", value)
+    if not value.is_cuda:
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, value is on "
+                         f"{value.device}")
     if iterations < 1:
         raise ValueError("iterations must be >= 1")
     B = value.shape[0]
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    out = value.new_empty((B,), dtype=torch.float32)
     if B:
-        _launch("viete_pi", dev, B, iterations, out.data_ptr())
+        _launch("viete_pi", value.get_device(), B, iterations, out.data_ptr())
     return out
 
 
 def rolling_digest_fwd(x: torch.Tensor) -> torch.Tensor:
     """(B,) float32 running digest of a (B,) float32 or int32 column."""
-    dev = _cuda("x", x)
-    if x.dim() != 1 or x.dtype not in (torch.float32, torch.int32):
-        raise TypeError("the digest takes a (B,) float32 or int32 column, "
-                        f"got {x.dtype} {tuple(x.shape)}")
-    check_operand("x", x, x.dtype, dev, align=4)
+    index = _operand("x", x, (torch.float32, torch.int32), 1)
     B = x.shape[0]
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    if B > SCAN_TILE and digest_shared_bytes(B) > DIGEST_SHARED_LIMIT:
+        raise ValueError(f"a part of {B} tuples needs "
+                         f"{digest_shared_bytes(B)} B of shared memory for "
+                         f"its tile totals; the digest kernel takes at most "
+                         f"{DIGEST_SHARED_LIMIT}")
+    out = x.new_empty((B,), dtype=torch.float32)
     if B:
-        _launch("rolling_digest", dev, x.data_ptr(),
+        _launch("rolling_digest", index, x.data_ptr(),
                 int(x.dtype == torch.int32), B, out.data_ptr())
     return out
 
@@ -139,14 +174,12 @@ def external_service_fwd(v: torch.Tensor,
                          work: int = SERVICE_WORK) -> torch.Tensor:
     """(B,) float32: the service chain from the sum of a (B,) float32
     column, for every tuple."""
-    dev = _cuda("v", v)
-    if v.dim() != 1:
-        raise ValueError(f"v must be (B,), got {tuple(v.shape)}")
+    index = _operand("v", v, (torch.float32,), 1)
     if work < 0:
         raise ValueError("work must be >= 0")
-    check_operand("v", v, torch.float32, dev, align=4)
     B = v.shape[0]
-    out = torch.empty((B,), dtype=torch.float32, device=dev)
+    out = torch.empty_like(v)
     if B:
-        _launch("external_service", dev, v.data_ptr(), B, work, out.data_ptr())
+        _launch("external_service", index, v.data_ptr(), B, work,
+                out.data_ptr())
     return out

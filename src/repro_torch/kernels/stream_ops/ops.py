@@ -19,15 +19,17 @@ from .ref import (PI_ITERATIONS, SERVICE_WORK, external_service_reference,
                   viete_pi_reference)
 
 
-def _on(t: torch.Tensor, what: str) -> str:
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
-    return t.device.type
+def _on_cuda(t: torch.Tensor, what: str) -> bool:
+    if t.is_cuda:
+        return True
+    if t.is_cpu:
+        return False
+    raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
 
 
 def parse_xml(payload: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(tags, checksum), each (B,) int32, of a (B, L) uint8 payload."""
-    if _on(payload, "parse_xml") == "cuda":
+    if _on_cuda(payload, "parse_xml"):
         return kernel.parse_xml_fwd(payload)
     return parse_xml_reference(payload)
 
@@ -35,14 +37,14 @@ def parse_xml(payload: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def viete_pi(value: torch.Tensor, iterations: int = PI_ITERATIONS
              ) -> torch.Tensor:
     """(B,) float32 Viète pi, one per tuple of ``value``."""
-    if _on(value, "viete_pi") == "cuda":
+    if _on_cuda(value, "viete_pi"):
         return kernel.viete_pi_fwd(value, iterations)
     return viete_pi_reference(value.shape[0], value.device, iterations)
 
 
 def rolling_digest(x: torch.Tensor) -> torch.Tensor:
     """(B,) float32 running digest of a (B,) float32 or int32 column."""
-    if _on(x, "rolling_digest") == "cuda":
+    if _on_cuda(x, "rolling_digest"):
         return kernel.rolling_digest_fwd(x)
     return rolling_digest_reference(x)
 
@@ -50,6 +52,6 @@ def rolling_digest(x: torch.Tensor) -> torch.Tensor:
 def external_service(v: torch.Tensor, work: int = SERVICE_WORK
                      ) -> torch.Tensor:
     """(B,) float32 external-service result for a (B,) float32 column."""
-    if _on(v, "external_service") == "cuda":
+    if _on_cuda(v, "external_service"):
         return kernel.external_service_fwd(v, work)
     return external_service_reference(v, work)

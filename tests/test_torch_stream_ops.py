@@ -4,14 +4,15 @@ JAX's CPU.
 
 Both packages run the same seeded parts: (B, L) uint8 payloads drawn as
 ``SyntheticSource`` draws them and (B,) float32 values, at ragged part
-sizes (B = 1, 7, 16, 33).  Integer outputs (tags, checksum, and the
-digest of an integer checksum) must be exact; float32 outputs agree
-within 1e-6 relative (the sums of the digest and the service run in
-another order in XLA).  On the CPU the port runs each kernel's plain
-PyTorch version; the ``cuda`` tests hold the kernels against those plain
-versions on the card, and an executor on the card against one on the CPU.
-The GPU machine has no JAX, so the reference is imported inside the tests
-that use it.
+sizes (B = 1, 7, 16, 33).  Every output must be equal, float32 ones
+included: the plain versions round as XLA's CPU programs do (one rounding
+for the service's multiply-add, XLA's order of sums and of the digest's
+scan, JAX's ``%``; ``tests/test_torch_stream_exact.py`` holds each of
+these over more parts and signs).  On the CPU the port runs each kernel's
+plain PyTorch version; the ``cuda`` tests hold the kernels against those
+plain versions on the card, to 0, and an executor on the card against one
+on the CPU.  The GPU machine has no JAX, so the reference is imported
+inside the tests that use it.
 """
 
 import numpy as np
@@ -24,7 +25,6 @@ from repro_torch.kernels.stream_ops import ref as so_ref
 from repro_torch.runtime import operators as port_operators
 
 PARTS = (1, 7, 16, 33)
-RTOL = 1e-6
 KINDS = ("parse_xml", "pi", "batch_file_write", "azure_blob", "azure_table",
          "source", "sink")
 
@@ -71,8 +71,7 @@ def assert_same(port, ref):
         assert port[k].shape == ref[k].shape, k
         if np.issubdtype(ref[k].dtype, np.floating):
             assert port[k].dtype == np.float32, k
-            np.testing.assert_allclose(port[k], ref[k], rtol=RTOL, atol=0,
-                                       err_msg=k)
+            np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
         else:
             np.testing.assert_array_equal(port[k].astype(np.int64),
                                           ref[k].astype(np.int64), err_msg=k)
@@ -150,7 +149,7 @@ def test_pi_iterations_match_reference(iterations):
     fn = jit_ref(lambda b: ref_ops()._op_pi(b, iterations=iterations))
     ref = np.asarray(fn({"value": jnp_array(np.zeros(5, np.float32))})["pi"])
     got = so_ops.viete_pi(torch.zeros(5), iterations).numpy()
-    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=0)
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("work", (0, 1, 64, 200))
@@ -159,7 +158,7 @@ def test_service_chain_matches_reference(work):
     fn = jit_ref(lambda b: ref_ops()._op_external_service(b, work=work))
     ref = np.asarray(fn({"value": jnp_array(v)})["service"])
     got = so_ops.external_service(torch.from_numpy(v), work).numpy()
-    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=0)
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_service_chain_wraps_at_the_modulus():
@@ -168,7 +167,7 @@ def test_service_chain_wraps_at_the_modulus():
     fn = jit_ref(ref_ops()._op_external_service)
     ref = np.asarray(fn({"value": jnp_array(v)})["service"])
     got = so_ops.external_service(torch.from_numpy(v)).numpy()
-    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=0)
+    np.testing.assert_array_equal(got, ref)
     assert got[0] < 100.0
 
 
@@ -208,28 +207,30 @@ def test_cuda_kernels_match_plain():
         pytest.skip("needs a CUDA device (run on the GPU with -m cuda)")
     dev = torch.device("cuda")
     so_kernel.reset_launch_count()
-    for B in PARTS + (1024,):
-        part = draw(B, seed=B)
+    for B in PARTS + (32, 1024, -5, -16):
+        part = draw(abs(B), seed=abs(B))
         payload = torch.from_numpy(part["payload"]).to(dev)
         value = torch.from_numpy(part["value"]).to(dev)
+        if B == -5:                     # a negative part
+            value = value * 1000.0 - 700.0
+        if B == -16:                    # a service key whose chain wraps
+            value = torch.full_like(value, 61.0)
         tags, checksum = so_kernel.parse_xml_fwd(payload)
         ref_tags, ref_checksum = so_ref.parse_xml_reference(payload)
         assert torch.equal(tags, ref_tags) and torch.equal(checksum,
                                                            ref_checksum)
-        for x in (value, checksum):
+        for x in (value, checksum, -checksum):
             got = so_kernel.rolling_digest_fwd(x)
             want = so_ref.rolling_digest_reference(x)
-            assert torch.allclose(got, want, rtol=RTOL, atol=0)
-        assert torch.allclose(so_kernel.viete_pi_fwd(value),
-                              so_ref.viete_pi_reference(B, dev), rtol=RTOL,
-                              atol=0)
-        assert torch.allclose(so_kernel.external_service_fwd(value),
-                              so_ref.external_service_reference(value),
-                              rtol=RTOL, atol=0)
+            assert torch.equal(got, want)
+        assert torch.equal(so_kernel.viete_pi_fwd(value),
+                           so_ref.viete_pi_reference(abs(B), dev))
+        assert torch.equal(so_kernel.external_service_fwd(value),
+                           so_ref.external_service_reference(value))
     torch.cuda.synchronize()
-    n = len(PARTS) + 1
+    n = len(PARTS) + 4
     assert so_kernel.launch_count() == {
-        "parse_xml": n, "viete_pi": n, "rolling_digest": 2 * n,
+        "parse_xml": n, "viete_pi": n, "rolling_digest": 3 * n,
         "external_service": n}
 
 
@@ -267,3 +268,15 @@ def test_cuda_executor_matches_cpu():
             (b.throughput, b.mean_latency, b.frames, b.tuples)
         assert sorted(a.device_frame_counts.values()) == \
             sorted(b.device_frame_counts.values())
+
+
+@pytest.mark.parametrize("B, totals", [
+    (1, ()), (16, ()), (17, (2,)), (256, (16,)), (257, (17, 2)),
+    (1024, (64, 4)), (4097, (257, 17, 2)),
+])
+def test_digest_shared_bytes_counts_the_tile_totals(B, totals):
+    """The digest kernel keeps each level's tile totals in shared memory:
+    a level of n > 16 values has ceil(n / 16) tiles."""
+    assert so_kernel.digest_shared_bytes(B) == 4 * sum(totals)
+    assert so_kernel.digest_shared_bytes(180_000) <= \
+        so_kernel.DIGEST_SHARED_LIMIT < so_kernel.digest_shared_bytes(200_000)
