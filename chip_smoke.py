@@ -88,13 +88,20 @@ Phases, each of which exits non-zero on failure:
    tuples of 256 bytes drawn as ``SyntheticSource`` draws them, a part of
    16 negative values and one whose service chain wraps at 1000, the
    digest on the float, the checksum and the negated checksum columns:
-   every output equal (tolerance 0).  Each
-   is timed at a frame's part (16 tuples) and at 1024 by profiler device
+   every output equal (tolerance 0).  parse_xml also runs on seeded bytes
+   0-255 through both paths of its kernel (the vector path at L = 256; the
+   byte path at L = 255 and at an odd byte offset), each path's launches
+   counted; the digest also runs past one block's reach (200,000 and
+   300,000 tuples, its tile totals in device memory), one counted launch
+   a call.  Each
+   is timed at a frame's part (16 tuples) and at 1024 (the digest also at
+   200,000) by profiler device
    time and CUDA events beside its plain version, its roofline bound
    (bytes, and its FP32-rate operations), and its latency floor: its
    dependent chain's steps at the cycles ``chain_probe.cu`` measures for
-   each kind of step, at the SM clock nvidia-smi reports, plus an empty
-   kernel's device time.  The host's launch path is split piece by piece
+   each kind of step, at the SM clock nvidia-smi reports, after the larger
+   of an empty kernel's device time and the part's first read (an
+   estimate, not a lower bound).  The host's launch path is split piece by piece
    (ns a call over 10,000 calls at 16 tuples).  (b)
    ``benchmarks/bench_chaos.py``'s 20-event day (4 tenants on 40 slots, 12
    frames an event, batch 16, its seeded FaultPlan and the correlated crash
@@ -111,7 +118,8 @@ Phases, each of which exits non-zero on failure:
    diamond climbs a ladder of planned rates (100, 1000, 5000, 20000 t/s);
    one warm diamond frame is traced (device kernels, device and wall ms).
    Each path runs with the launch counts set to 0 just before and read
-   just after.  One ``{"stream": ...}`` line carries it all.
+   just after; every parse_xml launch among them must take the vector
+   path.  One ``{"stream": ...}`` line carries it all.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
@@ -1077,6 +1085,15 @@ STREAM_KERNELS = {
 STREAM_PARTS, STREAM_LEN, STREAM_SPECIAL = (1, 7, 16, 32, 33, 1024), 256, 16
 #: the main path's part: one frame of the stream's batch
 STREAM_BATCH = 16
+#: parse_xml on bytes 0-255: rows, and (label, row length, byte offset)
+#: of each case, with the path the payload takes
+PARSE_BYTES_ROWS = 1024
+PARSE_BYTES_CASES = (("L=256, 16-byte aligned", 256, 0, "vector"),
+                     ("L=255", 255, 0, "byte"),
+                     ("L=256 at an odd byte offset", 256, 1, "byte"))
+#: digest parts past one block's reach (16384): one level of tile totals in
+#: device memory, and two
+DIGEST_LONG_PARTS = (200_000, 300_000)
 #: calls timed for each piece of a launch's host path
 LAUNCH_PATH_CALLS = 10_000
 #: dependent steps the chain probe times for each kind
@@ -1084,7 +1101,7 @@ PROBE_STEPS = 1024
 #: chain_probe.cu's step kinds, in its enum's order
 PROBE_KINDS = ("service_step", "service_first_step", "service_fast_step",
                "viete_step", "fadd", "digest_step", "shfl_iadd", "iadd",
-               "fdiv")
+               "fdiv", "shfl", "tag_word", "load")
 #: the WallClock stream: each seed DAG planned at and driven at this rate
 STREAM_RATE, STREAM_FRAMES = 100.0, 200
 #: diamond's ladder of planned and offered rates (t/s)
@@ -1207,7 +1224,8 @@ def build_chain_probe() -> dict:
     from repro_torch.kernels.stream_ops import kernel as so_kernel
     P, I = ctypes.c_void_p, ctypes.c_int
     rec = build_library(so_kernel.CSRC.parent / "chain_probe.cu",
-                        "repro_chain_probe", [I, I, ctypes.c_float, P, P, I, P])
+                        "repro_chain_probe",
+                        [I, I, ctypes.c_float, P, P, P, I, P])
     empty = rec["lib"].repro_stream_empty
     empty.restype, empty.argtypes = I, [I, P]
     rec["bound"] = {"probe": rec["fn"], "empty": empty}
@@ -1222,12 +1240,13 @@ def stream_probe(dev: torch.device) -> dict:
     index = dev.index or 0
     cycles_t = torch.zeros(1, dtype=torch.int64, device=dev)
     sink = torch.zeros(1, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(1, dtype=torch.int32, device=dev)
     cycles = {}
     for which, kind in enumerate(PROBE_KINDS):
         runs = []
         for _ in range(3):
             err = bound["probe"](which, PROBE_STEPS, 1.5, cycles_t.data_ptr(),
-                                 sink.data_ptr(), index,
+                                 sink.data_ptr(), zeros.data_ptr(), index,
                                  torch.cuda.current_stream(dev).cuda_stream)
             if err:
                 fail(f"chain probe {kind}: cudaError_t {err}")
@@ -1259,12 +1278,20 @@ def stream_probe(dev: torch.device) -> dict:
 
 def stream_chain(name: str, B: int) -> dict:
     """The dependent steps on a stream kernel's critical path, by
-    ``chain_probe.cu`` kind, as stream_ops.cu runs them (the first load's
-    latency and the loop bookkeeping not included)."""
+    ``chain_probe.cu`` kind, as stream_ops.cu runs them (the first read of
+    the part an L2 hit; the stores, the barriers and the loop bookkeeping
+    not included), at rows of STREAM_LEN bytes; None where the call is
+    more than one kernel."""
+    from repro_torch.kernels.stream_ops import kernel as so_kernel
     from repro_torch.kernels.stream_ops.ref import (PI_ITERATIONS, SCAN_TILE,
                                                     SERVICE_WORK, SUM_WINDOW)
-    if name == "parse_xml":               # a lane's bytes, then 5 shuffles
-        return {"iadd": -(-STREAM_LEN // 32), "shfl_iadd": 5}
+    if name == "parse_xml":               # the vector path: a lane's chunk
+        lanes = so_kernel.parse_xml_lanes(0, STREAM_LEN)
+        return {"load": 1,                # the lane's 16 bytes
+                "shfl": 1,                # the next lane's first word
+                "tag_word": 1,            # a word's tags and byte sum
+                "iadd": 3,                # four words' sums into the lane's
+                "shfl_iadd": lanes.bit_length() - 1}   # tags and sum, side by side
     if name == "viete_pi":                # sqrt(2), 14 steps, 2 / prod
         return {"viete_step": PI_ITERATIONS, "fdiv": 1}
     if name == "external_service":        # a lane's windows, then the chain
@@ -1273,19 +1300,20 @@ def stream_chain(name: str, B: int) -> dict:
             windows = -(-n // SUM_WINDOW)
             adds += -(-windows // 32) * SUM_WINDOW
             n = windows
-        return {"fadd": adds + n, "service_first_step": 1,
+        return {"load": 1, "fadd": adds + n, "service_first_step": 1,
                 "service_fast_step": SERVICE_WORK - 1}
-    if B <= SCAN_TILE:                    # lane 0's running sum
-        return {"fadd": B - 1, "digest_step": 1}
-    lens = [B]
-    while lens[-1] > SCAN_TILE:
+    if B > so_kernel.digest_reach():
+        return None
+    if B <= SCAN_TILE:                    # lane B - 1's own prefix, its %
+        return {"load": 1, "shfl": 1, "fadd": B - 1, "digest_step": 1}
+    lens = [B]                            # one block: the levels down, the
+    while lens[-1] > SCAN_TILE:           # top alone, the offsets up
         lens.append(-(-lens[-1] // SCAN_TILE))
-    tiles = [-(-n // 32) * SCAN_TILE for n in lens[1:]]   # a lane's values
-    adds = (sum(tiles)                    # down: the tile totals
-            + lens[-1]                    # the top level, lane 0
-            + 2 * sum(tiles[1:])          # up: running add, offset add
-            + tiles[0] - 1)               # the part: running adds
-    return {"fadd": adds, "digest_step": 1}
+    passes = -(-lens[1] // 64)            # level 0's tiles a lane group
+    down = passes * SCAN_TILE + SCAN_TILE * (len(lens) - 2)
+    return {"load": passes, "shfl": passes + len(lens) - 1,
+            "fadd": down + lens[-1] + len(lens) - 2,
+            "digest_step": passes}
 
 
 def launch_path_split(dev: torch.device) -> dict:
@@ -1296,6 +1324,8 @@ def launch_path_split(dev: torch.device) -> dict:
     from repro_torch.kernels.nvcc import check_operand
     from repro_torch.kernels.stream_ops import kernel as so_kernel
     value = torch.rand(STREAM_BATCH, device=dev)
+    payload = torch.randint(32, 127, (STREAM_BATCH, STREAM_LEN),
+                            dtype=torch.uint8, device=dev)
     out = torch.empty_like(value)
     bound = so_kernel.build()["bound"]
     index = dev.index or 0
@@ -1313,6 +1343,7 @@ def launch_path_split(dev: torch.device) -> dict:
         "external_service_fwd whole": lambda: so_kernel.external_service_fwd(
             value),
         "viete_pi_fwd whole": lambda: so_kernel.viete_pi_fwd(value),
+        "parse_xml_fwd whole": lambda: so_kernel.parse_xml_fwd(payload),
         "ctypes call (the launch)": launch,
         "stream: raw getter": lambda: raw(index),
         "stream: torch.cuda.current_stream().cuda_stream":
@@ -1327,6 +1358,11 @@ def launch_path_split(dev: torch.device) -> dict:
         "output: empty_like": lambda: torch.empty_like(value),
         "output: empty(device=dev)": lambda: torch.empty(
             (STREAM_BATCH,), dtype=torch.float32, device=dev),
+        "parse_xml outputs: one (2, B) and its rows": lambda: payload.new_empty(
+            (2, STREAM_BATCH), dtype=torch.int32).unbind(),
+        "parse_xml outputs: two (B,)": lambda: (
+            payload.new_empty((STREAM_BATCH,), dtype=torch.int32),
+            payload.new_empty((STREAM_BATCH,), dtype=torch.int32)),
     }
     ns = {}
     for name, fn in pieces.items():
@@ -1342,6 +1378,91 @@ def launch_path_split(dev: torch.device) -> dict:
           f"{LAUNCH_PATH_CALLS} calls each, host clock]: "
           + "; ".join(f"{k} {v:.0f}" for k, v in ns.items()), flush=True)
     return ns
+
+
+def parse_xml_paths(dev: torch.device) -> float:
+    """parse_xml on seeded bytes 0-255 (a tenth '<', a tenth '/', one row
+    of 255s) through each of its kernel's paths, against the plain version
+    to 0, with the launches each path counted; its checksums' digest too.
+    Returns the largest error."""
+    from repro_torch.kernels.stream_ops import kernel as so_kernel
+    from repro_torch.kernels.stream_ops import ref as so_ref
+    so_kernel.reset_launch_count()
+    worst, want_paths = 0.0, dict.fromkeys(so_kernel.PARSE_XML_PATHS, 0)
+    for label, L, offset, path in PARSE_BYTES_CASES:
+        rng = np.random.default_rng(L + offset)
+        raw = rng.integers(0, 256, size=PARSE_BYTES_ROWS * L + offset,
+                           dtype=np.uint8)
+        marks = rng.random(raw.shape)
+        raw[marks < 0.1] = ord("<")
+        raw[(marks >= 0.1) & (marks < 0.2)] = ord("/")
+        raw[offset:offset + L] = 255
+        payload = torch.from_numpy(raw).to(dev)[offset:].view(
+            PARSE_BYTES_ROWS, L)
+        tags, checksum = so_kernel.parse_xml_fwd(payload)
+        digest = so_kernel.rolling_digest_fwd(checksum)
+        torch.cuda.synchronize()
+        ref_tags, ref_checksum = so_ref.parse_xml_reference(payload)
+        ok = (torch.equal(tags, ref_tags) and torch.equal(checksum, ref_checksum)
+              and torch.equal(digest,
+                              so_ref.rolling_digest_reference(ref_checksum)))
+        err = float(max((tags - ref_tags).abs().max(),
+                        (checksum - ref_checksum).abs().max()))
+        worst = max(worst, err)
+        want_paths[path] += 1
+        print(f"stream parse_xml vs plain [bytes 0-255, {PARSE_BYTES_ROWS} "
+              f"rows, {label}, {path} path, address % 16 = "
+              f"{payload.data_ptr() % 16}]: tags {int(tags.sum())}, checksum "
+              f"max {int(checksum.max())}; tags, checksum and their digest "
+              f"{'equal' if ok else 'DIFFER'} (max_abs_err {err:.3g}, "
+              f"tolerance 0) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"parse_xml disagrees with its plain version on bytes 0-255 "
+                 f"({label})")
+    paths = so_kernel.parse_xml_path_count()
+    print(f"stream parse_xml paths [the cases above]: launches {paths}, "
+          f"expected {want_paths} {'ok' if paths == want_paths else 'MISMATCH'}",
+          flush=True)
+    if paths != want_paths:
+        fail("parse_xml took another path than its payloads allow")
+    return worst
+
+
+def long_digests(dev: torch.device) -> float:
+    """The digest past one block's reach (DIGEST_LONG_PARTS) on the float,
+    checksum and negated-checksum columns of SyntheticSource's draw,
+    against the plain version to 0.  Returns the largest error."""
+    from repro_torch.kernels.stream_ops import kernel as so_kernel
+    from repro_torch.kernels.stream_ops import ref as so_ref
+    worst = 0.0
+    for B in DIGEST_LONG_PARTS:
+        rng = np.random.default_rng(B)
+        payload = torch.from_numpy(rng.integers(
+            32, 127, size=(B, STREAM_LEN), dtype=np.uint8)).to(dev)
+        value = torch.from_numpy(rng.random(B, dtype=np.float32)).to(dev)
+        _, checksum = so_kernel.parse_xml_fwd(payload)
+        parts, ok = [], True
+        for label, x in (("float", value), ("checksum", checksum),
+                         ("negated checksum", -checksum)):
+            so_kernel.reset_launch_count()
+            got = so_kernel.rolling_digest_fwd(x)
+            launches = so_kernel.launch_count("rolling_digest")
+            torch.cuda.synchronize()
+            want = so_ref.rolling_digest_reference(x)
+            same = got.shape == want.shape and torch.equal(got, want)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            ok &= same and launches == 1
+            parts.append(f"{label} {'equal' if same else 'DIFFER'} "
+                         f"(max_abs_err {err:.3g}, {launches} launch)")
+        scratch = so_kernel.digest_scratch_floats(B)
+        print(f"stream digest vs plain [B={B}, past one block's "
+              f"{so_kernel.digest_reach()}: {scratch} floats of tile totals in "
+              f"device memory]: " + "; ".join(parts)
+              + f" (tolerance 0) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the digest disagrees with its plain version at B={B}")
+    return worst
 
 
 def stream_kernel_phase(dev: torch.device) -> tuple:
@@ -1402,13 +1523,19 @@ def stream_kernel_phase(dev: torch.device) -> tuple:
         if not ok:
             fail(f"a stream operator kernel disagrees with its plain version "
                  f"at {label}")
+    worst["parse_xml"] = max(worst["parse_xml"], parse_xml_paths(dev))
+    worst["rolling_digest"] = max(worst["rolling_digest"],
+                                  long_digests(dev))
 
     # what binds them: the roofline bound beside a latency floor (the
     # chain's dependent steps at their measured cycles, at the SM clock,
-    # plus an empty kernel's device time), and the host's launch path
+    # after an empty kernel's device time or the first read, the larger),
+    # and the host's launch path
     probe = stream_probe(dev)
     timing = {}
-    for B in (STREAM_BATCH, STREAM_PARTS[-1]):
+    for B, names in ((STREAM_BATCH, STREAM_KERNELS),
+                     (STREAM_PARTS[-1], STREAM_KERNELS),
+                     (DIGEST_LONG_PARTS[0], ("rolling_digest",))):
         rng = np.random.default_rng(B)
         payload = torch.from_numpy(rng.integers(
             32, 127, size=(B, STREAM_LEN), dtype=np.uint8)).to(dev)
@@ -1428,15 +1555,23 @@ def stream_kernel_phase(dev: torch.device) -> tuple:
                 lambda: so_ref.external_service_reference(value), 8 * B,
                 B + 3 * so_ref.SERVICE_WORK),
         }
-        for name, (kern, plain, nbytes, ops) in fns.items():
+        for name in names:
+            kern, plain, nbytes, ops = fns[name]
             ev = time_abba({"kernel": kern, "plain": plain},
                            ("plain", "kernel"))
             k_ms, _ = device_ms(kern, required=False)
             p_ms, _ = device_ms(plain, required=False)
             bound_ms, bound_by = bound(ops, nbytes, PEAK_FP32)
             chain = stream_chain(name, B)
-            cycles = sum(n * probe["cycles"][k] for k, n in chain.items())
-            floor_ms = probe["empty_ms"] + cycles / probe["clock_hz"] * 1e3
+            cycles = floor_ms = None
+            if chain is not None:
+                cycles = sum(n * probe["cycles"][k] for k, n in chain.items())
+                # the part's first read may overlap the launch time that the
+                # empty kernel already counts: it adds only beyond that
+                load = chain.get("load", 0) * probe["cycles"]["load"]
+                floor_ms = (max(probe["empty_ms"],
+                                load / probe["clock_hz"] * 1e3)
+                            + (cycles - load) / probe["clock_hz"] * 1e3)
             timing.setdefault(name, {})[B] = {
                 "ms": k_ms, "event_ms": ev["kernel"], "plain_ms": p_ms,
                 "plain_event_ms": ev["plain"], "bound_ms": bound_ms,
@@ -1451,10 +1586,13 @@ def stream_kernel_phase(dev: torch.device) -> tuple:
                   f"{ev['kernel']:.7f} plain {ev['plain']:.7f} (ABBA); "
                   f"roofline bound_ms {bound_ms:.10f} ({bound_by}: {nbytes} "
                   f"B, {ops} FP32-rate ops); latency floor ms "
-                  f"{floor_ms:.7f} (empty kernel {probe['empty_ms']:.7f} + "
-                  f"chain {cycles:.0f} cycles: "
-                  + ", ".join(f"{n} x {k}" for k, n in chain.items())
-                  + f", at {probe['clock_hz'] / 1e6:.0f} MHz)", flush=True)
+                  + ("none (a kernel a pass, not one chain)" if chain is None
+                     else f"{floor_ms:.7f} (the larger of an empty kernel "
+                     f"{probe['empty_ms']:.7f} and the first read, + the rest "
+                     f"of a chain of {cycles:.0f} cycles: "
+                     + ", ".join(f"{n} x {k}" for k, n in chain.items())
+                     + f", at {probe['clock_hz'] / 1e6:.0f} MHz)"),
+                  flush=True)
     return worst, {"timing": timing, "probe": probe,
                    "launch_path_ns": launch_path_split(dev)}
 
@@ -1479,6 +1617,14 @@ def stream_phase(dev: torch.device) -> tuple:
     result["timing"] = {n: {str(b): t for b, t in v.items()}
                         for n, v in timing.items()}
 
+    # parse_xml's launches on the main path by path (each read right after a
+    # card run, as the launch counts are)
+    main_paths = dict.fromkeys(so_kernel.PARSE_XML_PATHS, 0)
+
+    def note_paths():
+        for path, n in so_kernel.parse_xml_path_count().items():
+            main_paths[path] += n
+
     # 9b. the chaos day on the card and on the CPU ----------------------------------
     days, launches_by_path = {}, {}
     for device in (dev, cpu):
@@ -1492,6 +1638,7 @@ def stream_phase(dev: torch.device) -> tuple:
             fleet.apply(ev, at=float(i))
         if device == dev:
             torch.cuda.synchronize()
+            note_paths()
         wall = time.perf_counter() - t0
         days[device.type] = (fleet, so_kernel.launch_count(),
                         kernel_calls(operators, spawned), wall)
@@ -1542,6 +1689,8 @@ def stream_phase(dev: torch.device) -> tuple:
         for i, ev in enumerate(chaos_events(core, CHAOS_TRACE[:8])):
             fleet.apply(ev, at=float(i))
         launches = so_kernel.launch_count()
+        if device == dev:
+            note_paths()
         ms = fleet.measurements()
         res = core.recalibrate(wrong, ms, alpha=0.9)
         rails[device.type] = ([(m.kind, m.task, m.tau, m.tuples, m.busy_seconds)
@@ -1587,6 +1736,7 @@ def stream_phase(dev: torch.device) -> tuple:
                                          max_rate=AUTO_RECAL["rate"]), at=0.0)
         if device == dev:
             torch.cuda.synchronize()
+            note_paths()
         res = fleet.recalibrations[0] if fleet.recalibrations else None
         autos[device.type] = (
             enact_record(rec), list(fleet.recal_ticks),
@@ -1631,6 +1781,7 @@ def stream_phase(dev: torch.device) -> tuple:
         rep = ex.run(rate, n_frames=STREAM_FRAMES, batch=STREAM_BATCH)
         wall = time.perf_counter() - t0
         launches = so_kernel.launch_count()
+        note_paths()
         calls = kernel_calls(operators, [ex])
         if launches != calls:
             fail(f"stream {dag} at {rate:g} t/s: launches {launches} != "
@@ -1752,8 +1903,19 @@ def stream_phase(dev: torch.device) -> tuple:
           f"(a synchronisation after each part, service waits slept), "
           f"VirtualClock executor {split['virtual']:.3f} (launches only)",
           flush=True)
+    parse_launches = sum(c["parse_xml"] for c in launches_by_path.values())
+    vector_only = (main_paths["byte"] == 0
+                   and main_paths["vector"] == parse_launches > 0)
+    print(f"stream parse_xml paths [the main path: chaos day, recalibration, "
+          f"auto-recalibration, WallClock streams]: {main_paths} of "
+          f"{parse_launches} launches "
+          f"{'ok: every part took the vector path' if vector_only else 'MISMATCH'}",
+          flush=True)
+    if not vector_only:
+        fail("the runtime's parts did not all take parse_xml's vector path")
     result.update(stream=rows, ladder=ladder, frame_trace=trace,
-                  launches_by_path=launches_by_path)
+                  launches_by_path=launches_by_path,
+                  parse_xml_paths=main_paths)
     print(json.dumps({"stream": result}), flush=True)
 
     entries = []
@@ -1775,7 +1937,8 @@ def stream_phase(dev: torch.device) -> tuple:
             "plain_event_ms": t["plain_event_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "latency_floor_ms": t["latency_floor_ms"],
-            "library_ms": None, "part_tuples": STREAM_BATCH})
+            "library_ms": None, "part_tuples": STREAM_BATCH,
+            **({"paths": main_paths} if name == "parse_xml" else {})})
     return entries, result["auto_recal"]["sweep_launches"]
 
 

@@ -20,14 +20,19 @@ enum Step {
   kShflIadd,           // a shuffle and an integer add (parse_xml's reduction)
   kIadd,               // an integer add (parse_xml's per-lane sums)
   kFdiv,               // an IEEE float32 division (pi's last step)
+  kShfl,               // a shuffle alone (parse_xml's next word, the digest's tile)
+  kTagWord,            // parse_xml's word: successors, open_tags, byte_sum, adds
+  kLoad,               // a global load that L1 does not keep (an L2 hit): a
+                       // kernel's first read of its part
 };
 
 __global__ void empty_kernel() {}
 
 // One warp runs `steps` dependent steps of kind `which`; lane 0 writes the
-// clock64() cycles they took.
+// clock64() cycles they took.  `zeros` holds 0s: kLoad chases its first
+// entry, each load's address taken from the one before.
 __global__ void chain_probe_kernel(int which, int steps, float seed, long long* cycles,
-                                   float* sink) {
+                                   float* sink, const int* zeros) {
   float x = seed, prod = seed;
   int n = threadIdx.x + 1;
   const int m = n;
@@ -75,6 +80,26 @@ __global__ void chain_probe_kernel(int which, int steps, float seed, long long* 
 #pragma unroll 16
       for (int k = 0; k < steps; ++k) x = __fdiv_rn(2.0f, x);
       break;
+    case kShfl:
+#pragma unroll 16
+      for (int k = 0; k < steps; ++k) n = __shfl_down_sync(kFull, n, 1);
+      break;
+    case kLoad: {
+      int j = 0;
+#pragma unroll 16
+      for (int k = 0; k < steps; ++k) j = __ldcg(zeros + j);
+      n += j;
+      break;
+    }
+    case kTagWord: {
+      unsigned w = static_cast<unsigned>(n);
+#pragma unroll 16
+      for (int k = 0; k < steps; ++k)
+        w += open_tags(w, successors(w, static_cast<unsigned>(m))) + byte_sum(w);
+      n = static_cast<int>(w);
+      break;
+    }
+
     default:
       break;
   }
@@ -95,11 +120,13 @@ extern "C" int repro_stream_empty(int device, void* stream) {
 }
 
 extern "C" int repro_chain_probe(int which, int steps, float seed, void* cycles, void* sink,
-                                 int device, void* stream) {
-  if (steps < 1 || cycles == nullptr || sink == nullptr) return (int)cudaErrorInvalidValue;
+                                 const void* zeros, int device, void* stream) {
+  if (steps < 1 || cycles == nullptr || sink == nullptr || zeros == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   chain_probe_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
-      which, steps, seed, static_cast<long long*>(cycles), static_cast<float*>(sink));
+      which, steps, seed, static_cast<long long*>(cycles), static_cast<float*>(sink),
+      static_cast<const int*>(zeros));
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,19 @@ PyTorch's current stream of that device and counts the launch under its
 kernel's name (:data:`KERNELS`).  A part of zero tuples launches nothing.
 The shapes and numerics are :mod:`.ref`'s, bit for bit.
 
+* ``parse_xml`` takes one of two paths of its kernel, chosen here once a
+  launch (:func:`parse_xml_lanes`) and counted apart
+  (:func:`parse_xml_path_count`): the vector path where the payload is
+  16-byte aligned and a row a multiple of 16 bytes (16-byte loads, a lane
+  a chunk, 16 lanes a row of 256 bytes), else the byte path (a warp a
+  row).  Its two outputs are the rows of one (2, B) int32 tensor.
+* ``rolling_digest`` takes a part of any length: up to
+  :func:`digest_reach` tuples in one block, a longer one level by level,
+  the tile totals of each level past one block's reach in scratch
+  allocated here, of the size the C library gives
+  (:func:`digest_scratch_floats`).  Its C entry point then runs a kernel a
+  pass; the call still counts as one launch.
+
 A launch costs the card 1-2 us and the host far more, so the per-call
 path is short: the entry points and the stream getter are bound once,
 after the build; a call reads them without a lock, takes its operand's
@@ -28,33 +41,43 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from ..nvcc import build_library
-from .ref import PI_ITERATIONS, SCAN_TILE, SERVICE_WORK
+from .ref import PI_ITERATIONS, SERVICE_WORK
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "stream_ops.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: kernel name -> (C entry point, its argument types)
 _ENTRIES = {
-    "parse_xml": ("repro_parse_xml", [_P, _I, _I, _P, _P, _I, _P]),
+    "parse_xml": ("repro_parse_xml", [_P, _I, _I, _I, _P, _P, _I, _P]),
     "viete_pi": ("repro_viete_pi", [_I, _I, _P, _I, _P]),
-    "rolling_digest": ("repro_rolling_digest", [_P, _I, _I, _P, _I, _P]),
+    "rolling_digest": ("repro_rolling_digest",
+                       [_P, _I, _I, _P, _P, ctypes.c_longlong, _I, _P]),
     "external_service": ("repro_external_service", [_P, _I, _I, _P, _I, _P]),
 }
 KERNELS = tuple(_ENTRIES)
-#: the dynamic shared memory a block gets without opting in: the digest's
-#: tile totals must fit it
-DIGEST_SHARED_LIMIT = 48 * 1024
+#: the digest's scratch size in floats for a part of B (stream_ops.cu
+#: lays the levels out; 0 within one block's reach)
+_DIGEST_SCRATCH = ("repro_rolling_digest_scratch_floats", [_I])
+#: parse_xml's two paths (stream_ops.cu)
+PARSE_XML_PATHS = ("vector", "byte")
+#: bytes a lane of parse_xml's vector path loads at once, and its lanes a
+#: row at most
+PARSE_XML_CHUNK, PARSE_XML_MAX_LANES = 16, 32
 
 _LOCK = threading.Lock()
 #: the loaded library and its build record; ``bound``: the entry points by
-#: kernel name and ``stream`` (device index -> raw stream)
+#: kernel name, ``stream`` (device index -> raw stream) and
+#: ``digest_scratch``; ``digest_reach``: the longest part the digest takes
+#: in one block
 _LIB: Dict[str, object] = {}
 _launches = dict.fromkeys(KERNELS, 0)
+_paths = dict.fromkeys(PARSE_XML_PATHS, 0)
 
 
 def build() -> Dict[str, object]:
     """Compile (if needed) and load the kernel library; returns the build
     record (``path``, compile ``seconds``, ``ptxas`` report, ``bound``: the
-    four entry points by kernel name and ``stream``, the stream getter)."""
+    four entry points by kernel name, ``stream``, the stream getter, and
+    ``digest_scratch``; ``digest_reach``)."""
     with _LOCK:
         if "lib" not in _LIB:
             entry, argtypes = _ENTRIES["parse_xml"]
@@ -68,7 +91,14 @@ def build() -> Dict[str, object]:
             # device index -> the raw cudaStream_t of PyTorch's current
             # stream there (torch.cuda.current_stream builds a Stream object)
             bound["stream"] = torch._C._cuda_getCurrentRawStream
-            _LIB.update(record, bound=bound)
+            entry, argtypes = _DIGEST_SCRATCH
+            fn = getattr(record["lib"], entry)
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = argtypes
+            bound["digest_scratch"] = fn
+            reach = ctypes.c_int.in_dll(record["lib"],
+                                        "repro_rolling_digest_reach").value
+            _LIB.update(record, bound=bound, digest_reach=reach)
         return _LIB
 
 
@@ -79,19 +109,30 @@ def launch_count(name: Optional[str] = None) -> Union[int, Dict[str, int]]:
         return dict(_launches) if name is None else _launches[name]
 
 
+def parse_xml_path_count() -> Dict[str, int]:
+    """parse_xml's launches since the last :func:`reset_launch_count`, by
+    path (:data:`PARSE_XML_PATHS`)."""
+    with _LOCK:
+        return dict(_paths)
+
+
 def reset_launch_count() -> None:
     with _LOCK:
-        for name in _launches:
-            _launches[name] = 0
+        for counts in (_launches, _paths):
+            for name in counts:
+                counts[name] = 0
 
 
-def _launch(name: str, index: int, *args) -> None:
+def _launch(name: str, index: int, *args, path: Optional[str] = None
+            ) -> None:
     bound = _LIB.get("bound") or build()["bound"]
     err = bound[name](*args, index, bound["stream"](index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     with _LOCK:
         _launches[name] += 1
+        if path is not None:
+            _paths[path] += 1
 
 
 def _operand(what: str, t: torch.Tensor, dtypes: Tuple[torch.dtype, ...],
@@ -114,29 +155,45 @@ def _operand(what: str, t: torch.Tensor, dtypes: Tuple[torch.dtype, ...],
     return t.get_device()
 
 
-def digest_shared_bytes(B: int) -> int:
-    """Shared memory the digest kernel takes for a part of B: the tile
-    totals of every level above the part (stream_ops.cu)."""
-    total = 0
-    while B > SCAN_TILE:
-        B = -(-B // SCAN_TILE)
-        total += B
-    return 4 * total
+def parse_xml_lanes(address: int, L: int) -> int:
+    """parse_xml's lanes a row for a payload at ``address`` with rows of
+    ``L`` bytes: on the vector path (the address 16-byte aligned, L a
+    multiple of 16) a power of two, one lane a chunk of 16 bytes up to 32
+    lanes; 0 for the byte path."""
+    if L % PARSE_XML_CHUNK or address % PARSE_XML_CHUNK:
+        return 0
+    return min(PARSE_XML_MAX_LANES,
+               1 << (L // PARSE_XML_CHUNK - 1).bit_length())
+
+
+def digest_reach() -> int:
+    """The longest part the digest takes in one block, with no scratch
+    (stream_ops.cu's ``kDigestReach``); builds the library if needed."""
+    return (_LIB if "bound" in _LIB else build())["digest_reach"]
+
+
+def digest_scratch_floats(B: int) -> int:
+    """float32 scratch the digest takes for a part of B: the tile totals of
+    each level past one block's reach, 0 within it, as stream_ops.cu's
+    ``launch_digest`` lays them out; builds the library if needed."""
+    lib = _LIB if "bound" in _LIB else build()
+    return lib["bound"]["digest_scratch"](B) if B > lib["digest_reach"] else 0
 
 
 def parse_xml_fwd(payload: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tags, checksum), each (B,) int32, of a (B, L) uint8 payload."""
+    """(tags, checksum), each (B,) int32, of a (B, L) uint8 payload: the
+    two rows of one (2, B) tensor."""
     index = _operand("payload", payload, (torch.uint8,), 2)
     B, L = payload.shape
-    tags = payload.new_empty((B,), dtype=torch.int32)
-    checksum = payload.new_empty((B,), dtype=torch.int32)
+    out = payload.new_empty((2, B), dtype=torch.int32)
     if B and L:
-        _launch("parse_xml", index, payload.data_ptr(), B, L, tags.data_ptr(),
-                checksum.data_ptr())
+        address, rows = payload.data_ptr(), out.data_ptr()
+        lanes = parse_xml_lanes(address, L)
+        _launch("parse_xml", index, address, B, L, lanes, rows, rows + 4 * B,
+                path="vector" if lanes else "byte")
     else:
-        tags.zero_()
-        checksum.zero_()
-    return tags, checksum
+        out.zero_()
+    return out.unbind()
 
 
 def viete_pi_fwd(value: torch.Tensor,
@@ -158,15 +215,15 @@ def rolling_digest_fwd(x: torch.Tensor) -> torch.Tensor:
     """(B,) float32 running digest of a (B,) float32 or int32 column."""
     index = _operand("x", x, (torch.float32, torch.int32), 1)
     B = x.shape[0]
-    if B > SCAN_TILE and digest_shared_bytes(B) > DIGEST_SHARED_LIMIT:
-        raise ValueError(f"a part of {B} tuples needs "
-                         f"{digest_shared_bytes(B)} B of shared memory for "
-                         f"its tile totals; the digest kernel takes at most "
-                         f"{DIGEST_SHARED_LIMIT}")
     out = x.new_empty((B,), dtype=torch.float32)
     if B:
+        n = digest_scratch_floats(B)
+        # freed on return: the caching allocator hands it on only to work
+        # queued after this launch on the same stream
+        scratch = x.new_empty((n,), dtype=torch.float32) if n else None
         _launch("rolling_digest", index, x.data_ptr(),
-                int(x.dtype == torch.int32), B, out.data_ptr())
+                int(x.dtype == torch.int32), B, out.data_ptr(),
+                scratch.data_ptr() if n else None, n)
     return out
 
 

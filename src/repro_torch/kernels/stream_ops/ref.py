@@ -39,7 +39,8 @@ tiles are rewrites of the HLO, and XLA compiles without fast-math, so
 LLVM keeps each loop's float32 adds in order.
 
 The reference keeps ``checksum`` as uint32; here it is int32 (torch's
-uint32 has few operations).  Its largest value, 126 x L per tuple, fits.
+uint32 has few operations).  Its largest value, 255 x L for a row of L
+bytes (any uint8 byte), fits for L <= 8,421,504.
 These are the CPU path of :mod:`.ops` and the oracle the CUDA kernels are
 held against, to 0.
 """

@@ -227,11 +227,17 @@ def test_cuda_kernels_match_plain():
                            so_ref.viete_pi_reference(abs(B), dev))
         assert torch.equal(so_kernel.external_service_fwd(value),
                            so_ref.external_service_reference(value))
+    rng = np.random.default_rng(0)          # past one block's reach
+    long_part = torch.from_numpy(rng.random(200_000, dtype=np.float32)).to(dev)
+    assert torch.equal(so_kernel.rolling_digest_fwd(long_part),
+                       so_ref.rolling_digest_reference(long_part))
     torch.cuda.synchronize()
     n = len(PARTS) + 4
     assert so_kernel.launch_count() == {
-        "parse_xml": n, "viete_pi": n, "rolling_digest": 3 * n,
+        "parse_xml": n, "viete_pi": n, "rolling_digest": 3 * n + 1,
         "external_service": n}
+    # the parts are contiguous (B, 256) payloads: 16-byte aligned rows
+    assert so_kernel.parse_xml_path_count() == {"vector": n, "byte": 0}
 
 
 @pytest.mark.cuda
@@ -268,15 +274,3 @@ def test_cuda_executor_matches_cpu():
             (b.throughput, b.mean_latency, b.frames, b.tuples)
         assert sorted(a.device_frame_counts.values()) == \
             sorted(b.device_frame_counts.values())
-
-
-@pytest.mark.parametrize("B, totals", [
-    (1, ()), (16, ()), (17, (2,)), (256, (16,)), (257, (17, 2)),
-    (1024, (64, 4)), (4097, (257, 17, 2)),
-])
-def test_digest_shared_bytes_counts_the_tile_totals(B, totals):
-    """The digest kernel keeps each level's tile totals in shared memory:
-    a level of n > 16 values has ceil(n / 16) tiles."""
-    assert so_kernel.digest_shared_bytes(B) == 4 * sum(totals)
-    assert so_kernel.digest_shared_bytes(180_000) <= \
-        so_kernel.DIGEST_SHARED_LIMIT < so_kernel.digest_shared_bytes(200_000)
