@@ -15,7 +15,11 @@ Phases, each of which exits non-zero on failure:
    on the card, with stated tolerances.  bf16 runs the tensor-core kernels,
    fp32 the scalar ones.  Flash: the minicpm serving shape, zamba2-1.2b's
    shared-block shape, GQA, a ragged Sq = Skv = 33 and q_offset in bf16,
-   q_offset and a padded hd in fp32 (TF32 off).  SSD: the mamba2-370m and
+   q_offset and a padded hd in fp32 (TF32 off), and in bf16 at the serving
+   prompt the shapes of the other served models: whisper's decoder (H = K
+   = 20, hd 64), phi-3-vision's (H = K = 32, hd 96 padded to 128),
+   kimi-k2's (H 64, K 8, hd 112 padded) and qwen2.5-32b's (H 40, K 8: a
+   GQA group of 5).  SSD: the mamba2-370m and
    zamba2-1.2b serving shapes, a padded (S=1000) and a short (S=100)
    prompt, an init_state case and two chained halves against one call, in
    bf16 and in fp32, and a narrow bf16 case (P=32, N=48, 6 heads).  Then each kernel, its plain version and, for flash,
@@ -24,20 +28,29 @@ Phases, each of which exits non-zero on failure:
    from torch.profiler (the summed time of the device kernels 20 calls
    launch, per call) and, beside it, CUDA events around 20 calls in ABBA
    order (which include the host's gaps between launches);
-4. plan: ``plan_serving`` for minicpm-2b, mamba2-370m and zamba2-1.2b on
-   the H100 datasheet hardware;
-5. serve: for each of the three models, 8 requests (prompt 1024, 32 new
-   tokens, 4 slots) through ``run_serving`` at full width and depth (bf16,
-   weights drawn on the card from a seeded generator), with both launch
-   counts set to 0 just before and read just after: minicpm-2b 40 flash
-   launches per prefill, mamba2-370m 48 SSD launches per prefill,
-   zamba2-1.2b 38 SSD and 6 flash launches per prefill.  One warm prefill
+4. plan: ``plan_serving`` for all ten architectures on the H100 datasheet
+   hardware;
+5. serve: for each of the ten models, 8 requests (prompt 1024, 32 new
+   tokens, 4 slots) through ``run_serving`` at full width (bf16, weights
+   drawn on the card from a seeded generator; whisper with its 1500 zero
+   stand-in frames, phi-3-vision with 576 zero patch embeddings) and full
+   depth, but for qwen2-72b (32 of 80 layers) and kimi-k2 (1 of 61, all
+   384 experts), which one 80 GB card cannot hold whole; both launch
+   counts set to 0 just before and read just after.  Flash launches per
+   prefill: one per attention layer (minicpm 40, minitron 32, qwen2.5 64,
+   qwen2-72b 32, moonshot 48, kimi 1, phi-3-vision 32), whisper's 32
+   decoder self-attentions, zamba2's 6 shared blocks; SSD: mamba2 48,
+   zamba2 38.  Peak device memory stays under 80 GB.  One warm prefill
    and one batched decode step of each model are traced with
    torch.profiler (device kernels, their summed time and its share of the
    step's wall time, the port's kernels by name);
-6. agreement: for each family at a small size in fp32, prefill logits, the
-   caches and greedy tokens of 5 ragged requests on the card agree with the
-   same model run on the CPU;
+6. agreement: for each family (dense, ssm, hybrid, moe, vlm, audio) at a
+   small size in fp32, prefill logits (whisper and phi-3-vision on seeded
+   frames / patch embeddings), every cache entry and greedy tokens of 5
+   ragged requests on the card agree with the same model run on the CPU;
+   for moe, every routing decision (the top-k experts of each token) is
+   equal, and the smallest gap between a token's k-th and (k+1)-th router
+   probability is printed;
 7. scheduler: each of the six seed DAGs, planned at 100 t/s with mba/sam,
    is swept over ``benchmarks/bench_sweep.py``'s grid (50 rates from 10 to
    150 t/s, 60 s at dt 0.05) by ``DataflowSimulator.sweep_raw`` on the
@@ -130,6 +143,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import pathlib
@@ -155,7 +169,19 @@ PEAK_FP64 = 34e12
 # no int32 rate)
 PEAK_FP32 = 67e12
 
-ARCHS = ("minicpm-2b", "mamba2-370m", "zamba2-1.2b")
+# phase 5: every architecture the port serves, in the reference's order,
+# at full width; two cut in depth (layers kept of the published count)
+# because one 80 GB card cannot hold them whole: qwen2-72b to one stage of
+# the two-card prefill that plan_serving gives it (40 of 80), kimi-k2 to the
+# most layers whose weights fit (2 of 61, 73.0 GB in bf16)
+SERVED = ("minicpm-2b", "minitron-4b", "qwen2.5-32b", "qwen2-72b",
+          "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "zamba2-1.2b",
+          "whisper-large-v3", "mamba2-370m", "phi-3-vision-4.2b")
+DEPTH_CUTS = {"qwen2-72b": 40, "kimi-k2-1t-a32b": 2}
+CARD_BYTES = 80e9
+# phase 6: one architecture of each family
+AGREEMENT = ("minicpm-2b", "mamba2-370m", "zamba2-1.2b",
+             "moonshot-v1-16b-a3b", "phi-3-vision-4.2b", "whisper-large-v3")
 REQUESTS, PROMPT_LEN, NEW_TOKENS, MAX_BATCH, SEED = 8, 1024, 32, 4, 0
 TOLS = {torch.bfloat16: 2e-2, torch.float32: 2e-6}
 # SSD: the reference's tolerances (tests/test_kernels.py)
@@ -346,7 +372,7 @@ def ssd_work(Bt: int, S: int, H: int, P: int, N: int, chunk: int,
     return float(flops), float(nbytes)
 
 
-def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
+def profile_steps(eng, prefill_batch: dict, decode_batch: dict,
                   wall_ms: dict, ours: set) -> None:
     """Trace one warm prefill and one batched decode step of the engine
     with torch.profiler: device kernels launched, their summed time, that
@@ -359,7 +385,7 @@ def profile_steps(eng, prompt: torch.Tensor, decode_batch: dict,
 
     steps = {
         "prefill": lambda: eng.api.prefill(eng.env, eng.params,
-                                           {"tokens": prompt}),
+                                           prefill_batch),
         "decode": lambda: eng.api.decode_step(eng.env, eng.params, eng.cache,
                                               decode_batch),
     }
@@ -1942,14 +1968,205 @@ def stream_phase(dev: torch.device) -> tuple:
     return entries, result["auto_recal"]["sweep_launches"]
 
 
+def serve_phase(dev: torch.device, port_kernels: set) -> dict:
+    """Phases 4 and 5; returns each kernel's launches by served model."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.roofline import H100_SXM
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.serve import plan_serving
+
+    # 4. plan -------------------------------------------------------------------
+    print(H100_SXM.describe())
+    for arch in SERVED:
+        sp = plan_serving(get_config(arch), request_rate=4.0,
+                          prompt_len=PROMPT_LEN, gen_len=NEW_TOKENS,
+                          hardware=H100_SXM)
+        print(f"[{arch}] {sp.describe()}")
+        print(sp.schedule.describe(), flush=True)
+
+    # 5. serve at full width (and depth, but for DEPTH_CUTS) -------------------------
+    counters = {"flash": kernel, "ssd": ssd_kernel}
+    launches = {name: {} for name in counters}
+    for arch in SERVED:
+        published = get_config(arch)
+        cfg = dataclasses.replace(
+            published, num_layers=DEPTH_CUTS.get(arch, published.num_layers))
+        n_shared = cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
+        per_prefill = {
+            # causal prompt attention: every attention layer of a decoder,
+            # the encoder-decoder's decoder self-attention (its encoder and
+            # cross-attention are plain tensor code), the hybrid's shared
+            # block
+            "flash": (n_shared if cfg.family == "hybrid" else
+                      0 if cfg.family == "ssm" else cfg.num_layers),
+            "ssd": cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0}
+        for mod in counters.values():
+            mod.reset_launch_count()
+        res = run_serving(cfg, device="cuda", requests=REQUESTS,
+                          prompt_len=PROMPT_LEN, max_new=NEW_TOKENS,
+                          max_batch=MAX_BATCH, seed=SEED)
+        counts = {name: mod.launch_count() for name, mod in counters.items()}
+        expected = {name: n * REQUESTS for name, n in per_prefill.items()}
+        for name, n in counts.items():
+            launches[name][arch] = n
+        done = res["done"]
+        print(json.dumps({"serving": {
+            "arch": cfg.name, "family": cfg.family,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "reduced": ({"num_layers": [cfg.num_layers, published.num_layers]}
+                        if cfg.num_layers != published.num_layers else None),
+            "requests": res["requests"], "prompt_len": PROMPT_LEN,
+            "new_tokens": NEW_TOKENS, "max_batch": MAX_BATCH, "dtype": "bf16",
+            "tokens": res["tokens"], "wall_s": res["wall_s"],
+            "tokens_per_s": res["tokens_per_s"],
+            "ttft_p50_ms": res["ttft_p50_ms"],
+            "ttft_p99_ms": res["ttft_p99_ms"],
+            "e2e_p50_ms": res["e2e_p50_ms"],
+            "peak_mem_bytes": res["peak_mem_bytes"],
+            "prefills": res["prefills"],
+            "prefill_ms_first": res["prefill_ms_first"],
+            "prefill_ms_p50": res["prefill_ms_p50"],
+            "decode_steps": res["decode_steps"],
+            "decode_ms_first": res["decode_ms_first"],
+            "decode_ms_p50": res["decode_ms_p50"],
+            "flash_launches": counts["flash"],
+            "ssd_launches": counts["ssd"],
+            "expected_launches": expected}}), flush=True)
+        if counts != expected:
+            fail(f"{arch}: kernel launches {counts}, expected {expected}")
+        if len(done) != REQUESTS or any(len(r.output) != NEW_TOKENS
+                                        for r in done):
+            fail(f"{arch}: not every request finished with its tokens")
+        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
+            fail(f"{arch}: a generated token is outside the vocabulary")
+        if not res["peak_mem_bytes"] < CARD_BYTES:
+            fail(f"{arch}: peak device memory {res['peak_mem_bytes']} B is "
+                 f"not under {CARD_BYTES:.0f}")
+        eng = res["engine"]
+        batch = eng.prefill_batch(done[0].prompt)
+        prompt = batch["tokens"]
+        profile_steps(eng, batch, {
+            "tokens": prompt[:, :1].expand(MAX_BATCH, 1).contiguous(),
+            "pos": torch.full((MAX_BATCH,), PROMPT_LEN + NEW_TOKENS,
+                              device=dev)},
+            {"prefill": res["prefill_ms_p50"],
+             "decode": res["decode_ms_p50"]}, port_kernels)
+        logits, _ = eng.api.prefill(eng.env, eng.params, batch)
+        if logits.shape != (1, 1, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"{arch}: full-size prefill logits are not finite of shape "
+                 "(1, 1, V)")
+        del eng, res, logits, done, prompt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def agreement_phase(dev: torch.device) -> None:
+    """Phase 6."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import scale_config
+    from repro_torch.models import Env, get_model
+    from repro_torch.models import moe as moe_module
+    from repro_torch.serve import ServeEngine
+
+    # 6. agreement with the CPU at a small size ---------------------------------
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.to(device)
+
+    envs = {"cpu": Env(torch.device("cpu"), torch.float32),
+            "cuda": Env(dev, torch.float32)}
+    prompts = np.random.default_rng(SEED).integers(0, 8192, (5, 100))
+    stubs = np.random.default_rng(SEED + 1)
+    for arch in AGREEMENT:
+        small = scale_config(get_config(arch), "10m")
+        if small.family == "ssm":      # several chunks, the last one ragged
+            small = dataclasses.replace(small, ssm_chunk=32)
+        if small.family == "hybrid":   # the shared block runs at 4 layers
+            small = dataclasses.replace(
+                small, attn_period=small.num_layers // 2)
+        api = get_model(small)
+        cpu_params = api.init(torch.Generator().manual_seed(SEED),
+                              device="cpu")
+        params = {"cpu": cpu_params, "cuda": to(cpu_params, dev)}
+        # the compared prefill takes seeded frames / patch embeddings: the
+        # engine's zero stand-ins would leave the freshly drawn encoder
+        # (zero biases) and its cross-attention nothing but zeros to carry
+        extra = {}
+        if small.family == "audio":
+            extra["frames"] = stubs.normal(
+                size=(1, small.encoder_seq, small.d_model))
+        if small.family == "vlm":
+            extra["patch_embeds"] = stubs.normal(
+                size=(1, small.num_patches, small.d_model))
+        got, routes = {}, {}
+        for name, env in envs.items():
+            batch = {"tokens": torch.as_tensor(prompts[:1], dtype=torch.long,
+                                               device=env.device),
+                     **{k: torch.as_tensor(v, dtype=torch.float32,
+                                           device=env.device)
+                        for k, v in extra.items()}}
+            with recorded_calls(moe_module, "_route") as calls:
+                lg, cache = api.prefill(env, params[name], batch,
+                                        max_len=120)
+                engine = ServeEngine(api, env, params[name], max_batch=2,
+                                     max_len=120)
+                for p, budget in zip(prompts, (6, 9, 4, 8, 5)):
+                    engine.submit(p, max_new_tokens=budget)
+                outs = {r.rid: r.output for r in engine.run()}
+            routes[name] = [tuple(t.cpu() for t in out)
+                            for _, _, out in calls]
+            got[name] = (lg.cpu(), {k: t.cpu() for k, t in cache.items()},
+                         outs)
+        logit_err = float((got["cpu"][0] - got["cuda"][0]).abs().max())
+        cache_err = {k: float((t - got["cuda"][1][k]).abs().max())
+                     for k, t in got["cpu"][1].items()}
+        same_tokens = got["cpu"][2] == got["cuda"][2]
+        route_note, same_routes = "", True
+        if small.family == "moe":
+            k = small.experts_per_token
+            gaps = [float((pr.sort(dim=-1, descending=True).values[:, k - 1]
+                           - pr.sort(dim=-1, descending=True).values[:, k])
+                          .min()) for pr, _, _ in routes["cuda"]]
+            same_routes = len(routes["cpu"]) == len(routes["cuda"]) and all(
+                torch.equal(c[2], g[2])
+                for c, g in zip(routes["cpu"], routes["cuda"]))
+            route_note = (
+                f"; router: {len(routes['cuda'])} calls, "
+                f"{sum(r[2].shape[0] for r in routes['cuda'])} tokens routed "
+                f"to {k} of {small.num_experts} experts, smallest gap between "
+                f"the k-th and (k+1)-th probability {min(gaps):.3g}, routing "
+                f"decisions equal: {same_routes}")
+        print(f"agreement at {small.name} fp32 (prompt 100"
+              + (f", ssm_chunk {small.ssm_chunk}" if small.ssm_state else "")
+              + (f", attn_period {small.attn_period}" if small.attn_period
+                 else "")
+              + (f", seeded {'/'.join(sorted(extra))}" if extra else "")
+              + f"): prefill logits max_abs_err {logit_err:.3g}, cache "
+              + ", ".join(f"{k} {e:.3g}" for k, e in sorted(cache_err.items()))
+              + f" (tol 1e-4); greedy tokens of 5 requests equal: "
+              f"{same_tokens}" + route_note, flush=True)
+        if not same_routes:
+            fail(f"{arch}: a routing decision on the card differs from the "
+                 "CPU's")
+        if logit_err > 1e-4 or max(cache_err.values()) > 1e-4 or \
+                not same_tokens:
+            fail(f"{arch}: the port on the card disagrees with the same "
+                 "model on the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE / "src"))
-    from repro_torch.configs import get_config
-    from repro_torch.distributed.roofline import H100_SXM
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import reference_attention
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -1957,9 +2174,6 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
     from repro_torch.kernels.stream_ops import kernel as stream_kernel
     from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
-    from repro_torch.launch.serve import run_serving, scale_config
-    from repro_torch.models import Env, get_model
-    from repro_torch.serve import ServeEngine, plan_serving
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2026,6 +2240,21 @@ def main() -> int:
         ("bf16_q_offset", 2, 96, 256, 4, 4, 64, torch.bfloat16, 160),
         ("q_offset", 2, 96, 256, 4, 4, 64, torch.float32, 160),
         ("fp32_hd112", 1, 333, 333, 4, 4, 112, torch.float32, 0),
+        # the other served models' shapes, each at the serving prompt
+        ("whisper_decoder", 1, PROMPT_LEN, PROMPT_LEN, 20, 20, 64,
+         torch.bfloat16, 0),
+        ("phi3v_hd96", 1, PROMPT_LEN, PROMPT_LEN, 32, 32, 96,
+         torch.bfloat16, 0),
+        ("kimi_hd112_gqa8", 1, PROMPT_LEN, PROMPT_LEN, 64, 8, 112,
+         torch.bfloat16, 0),
+        ("qwen25_gqa5", 1, PROMPT_LEN, PROMPT_LEN, 40, 8, 128,
+         torch.bfloat16, 0),
+        ("minitron_gqa3", 1, PROMPT_LEN, PROMPT_LEN, 24, 8, 128,
+         torch.bfloat16, 0),
+        ("qwen2_72b_gqa8", 1, PROMPT_LEN, PROMPT_LEN, 64, 8, 128,
+         torch.bfloat16, 0),
+        ("moonshot_mha", 1, PROMPT_LEN, PROMPT_LEN, 16, 16, 128,
+         torch.bfloat16, 0),
     ]
     errors = {}
     for name, B, Sq, Skv, H, K, hd, dtype, off in cases:
@@ -2163,129 +2392,11 @@ def main() -> int:
     del x, dt, A, Bm, Cm, args, full, y1, y2, s1, s2, fns
     torch.cuda.empty_cache()
 
-    # 4. plan -------------------------------------------------------------------
-    print(H100_SXM.describe())
-    for arch in ARCHS:
-        sp = plan_serving(get_config(arch), request_rate=4.0,
-                          prompt_len=PROMPT_LEN, gen_len=NEW_TOKENS,
-                          hardware=H100_SXM)
-        print(f"[{arch}] {sp.describe()}")
-        print(sp.schedule.describe(), flush=True)
-
-    # 5. serve at full width and depth ---------------------------------------------
-    counters = {"flash": kernel, "ssd": ssd_kernel}
-    launches = {name: {} for name in counters}
-    for arch in ARCHS:
-        cfg = get_config(arch)
-        n_shared = cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
-        per_prefill = {
-            "flash": cfg.num_layers if cfg.family == "dense" else n_shared,
-            "ssd": cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0}
-        for mod in counters.values():
-            mod.reset_launch_count()
-        res = run_serving(cfg, device="cuda", requests=REQUESTS,
-                          prompt_len=PROMPT_LEN, max_new=NEW_TOKENS,
-                          max_batch=MAX_BATCH, seed=SEED)
-        counts = {name: mod.launch_count() for name, mod in counters.items()}
-        expected = {name: n * REQUESTS for name, n in per_prefill.items()}
-        for name, n in counts.items():
-            launches[name][arch] = n
-        done = res["done"]
-        print(json.dumps({"serving": {
-            "arch": cfg.name, "layers": cfg.num_layers,
-            "d_model": cfg.d_model,
-            "requests": res["requests"], "prompt_len": PROMPT_LEN,
-            "new_tokens": NEW_TOKENS, "max_batch": MAX_BATCH, "dtype": "bf16",
-            "tokens": res["tokens"], "wall_s": res["wall_s"],
-            "tokens_per_s": res["tokens_per_s"],
-            "ttft_p50_ms": res["ttft_p50_ms"],
-            "ttft_p99_ms": res["ttft_p99_ms"],
-            "e2e_p50_ms": res["e2e_p50_ms"],
-            "peak_mem_bytes": res["peak_mem_bytes"],
-            "prefills": res["prefills"],
-            "prefill_ms_first": res["prefill_ms_first"],
-            "prefill_ms_p50": res["prefill_ms_p50"],
-            "decode_steps": res["decode_steps"],
-            "decode_ms_first": res["decode_ms_first"],
-            "decode_ms_p50": res["decode_ms_p50"],
-            "flash_launches": counts["flash"],
-            "ssd_launches": counts["ssd"],
-            "expected_launches": expected}}), flush=True)
-        if counts != expected:
-            fail(f"{arch}: kernel launches {counts}, expected {expected}")
-        if len(done) != REQUESTS or any(len(r.output) != NEW_TOKENS
-                                        for r in done):
-            fail(f"{arch}: not every request finished with its tokens")
-        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
-            fail(f"{arch}: a generated token is outside the vocabulary")
-        eng = res["engine"]
-        prompt = torch.as_tensor(done[0].prompt[None, :], dtype=torch.long,
-                                 device=dev)
-        profile_steps(eng, prompt, {
-            "tokens": prompt[:, :1].expand(MAX_BATCH, 1).contiguous(),
-            "pos": torch.full((MAX_BATCH,), PROMPT_LEN + NEW_TOKENS,
-                              device=dev)},
-            {"prefill": res["prefill_ms_p50"],
-             "decode": res["decode_ms_p50"]}, port_kernels)
-        logits, _ = eng.api.prefill(eng.env, eng.params, {"tokens": prompt})
-        if logits.shape != (1, 1, cfg.vocab_size) or \
-                not bool(torch.isfinite(logits).all()):
-            fail(f"{arch}: full-size prefill logits are not finite of shape "
-                 "(1, 1, V)")
-        del eng, res, logits, done, prompt
-        torch.cuda.empty_cache()
+    # 4-5. plan, and serve at full width ------------------------------------------
+    launches = serve_phase(dev, port_kernels)
 
     # 6. agreement with the CPU at a small size ---------------------------------
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, device) for v in tree]
-        return tree.to(device)
-
-    envs = {"cpu": Env(torch.device("cpu"), torch.float32),
-            "cuda": Env(dev, torch.float32)}
-    prompts = np.random.default_rng(SEED).integers(0, 8192, (5, 100))
-    for arch in ARCHS:
-        small = scale_config(get_config(arch), "10m")
-        if small.family == "ssm":      # several chunks, the last one ragged
-            small = dataclasses.replace(small, ssm_chunk=32)
-        if small.family == "hybrid":   # the shared block runs at 4 layers
-            small = dataclasses.replace(
-                small, attn_period=small.num_layers // 2)
-        api = get_model(small)
-        cpu_params = api.init(torch.Generator().manual_seed(SEED),
-                              device="cpu")
-        params = {"cpu": cpu_params, "cuda": to(cpu_params, dev)}
-        got = {}
-        for name, env in envs.items():
-            toks = torch.as_tensor(prompts[:1], dtype=torch.long,
-                                   device=env.device)
-            lg, cache = api.prefill(env, params[name], {"tokens": toks},
-                                    max_len=120)
-            engine = ServeEngine(api, env, params[name], max_batch=2,
-                                 max_len=120)
-            for p, budget in zip(prompts, (6, 9, 4, 8, 5)):
-                engine.submit(p, max_new_tokens=budget)
-            outs = {r.rid: r.output for r in engine.run()}
-            got[name] = (lg.cpu(), {k: t.cpu() for k, t in cache.items()},
-                         outs)
-        logit_err = float((got["cpu"][0] - got["cuda"][0]).abs().max())
-        cache_err = {k: float((t - got["cuda"][1][k]).abs().max())
-                     for k, t in got["cpu"][1].items()}
-        same_tokens = got["cpu"][2] == got["cuda"][2]
-        print(f"agreement at {small.name} fp32 (prompt 100"
-              + (f", ssm_chunk {small.ssm_chunk}" if small.ssm_state else "")
-              + (f", attn_period {small.attn_period}" if small.attn_period
-                 else "")
-              + f"): prefill logits max_abs_err {logit_err:.3g}, cache "
-              + ", ".join(f"{k} {e:.3g}" for k, e in sorted(cache_err.items()))
-              + f" (tol 1e-4); greedy tokens of 5 requests equal: "
-              f"{same_tokens}", flush=True)
-        if logit_err > 1e-4 or max(cache_err.values()) > 1e-4 or \
-                not same_tokens:
-            fail(f"{arch}: the port on the card disagrees with the same "
-                 "model on the CPU")
+    agreement_phase(dev)
 
     # 7. scheduler: the sweep engine and the mapper search -------------------------
     sweep_entry = scheduler_phase(dev)
@@ -2314,6 +2425,7 @@ def main() -> int:
         "launches": sum(launches["flash"].values()),
         "launches_by_path": launches["flash"],
         "max_abs_err": errors["serving"],
+        "max_abs_err_by_case": errors,
         "ms": ms["kernel"],
         "kernel_ms": ms["kernel"],
         "event_ms": ev["kernel"],

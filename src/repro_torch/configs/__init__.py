@@ -1,15 +1,22 @@
 """Architecture configs carried by the port (one module per arch) + registry.
 
-The serving slices' models are registered: minicpm-2b (dense), mamba2-370m
-(ssm) and zamba2-1.2b (hybrid); the other families of the reference's pool
-wait for their slices (see ROADMAP.md).
+All ten architectures of the reference's pool, in its ``ARCHS`` order:
+dense (minicpm-2b, minitron-4b, qwen2.5-32b, qwen2-72b), moe
+(moonshot-v1-16b-a3b, kimi-k2-1t-a32b), hybrid (zamba2-1.2b), audio
+(whisper-large-v3), ssm (mamba2-370m) and vlm (phi-3-vision-4.2b).
 """
 
 from .base import ModelConfig
-from . import mamba2_370m, minicpm_2b, zamba2_1_2b
+from . import (minicpm_2b, minitron_4b, qwen2_5_32b, qwen2_72b,
+               moonshot_v1_16b_a3b, kimi_k2_1t_a32b, zamba2_1_2b,
+               whisper_large_v3, mamba2_370m, phi_3_vision_4_2b)
 
-ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (minicpm_2b, mamba2_370m, zamba2_1_2b)}
+ARCHS = {
+    m.CONFIG.name: m.CONFIG
+    for m in (minicpm_2b, minitron_4b, qwen2_5_32b, qwen2_72b,
+              moonshot_v1_16b_a3b, kimi_k2_1t_a32b, zamba2_1_2b,
+              whisper_large_v3, mamba2_370m, phi_3_vision_4_2b)
+}
 
 
 def get_config(name: str) -> ModelConfig:

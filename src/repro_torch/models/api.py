@@ -8,7 +8,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import encdec, transformer
 
 Params = Dict[str, Any]
 
@@ -23,10 +23,10 @@ class ModelApi:
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    """The decoder's entry points (dense, ssm and hybrid families) bound to
-    ``cfg``.  The training ``forward`` and the other families' modules wait
-    for their slices (see ROADMAP.md)."""
-    mod = transformer
+    """The entry points of ``cfg``'s family bound to ``cfg``: the
+    encoder-decoder for audio, the decoder for every other family.  The
+    training ``forward`` waits for its slice (ROADMAP.md Queue 1, item 8)."""
+    mod = encdec if cfg.family == "audio" else transformer
     return ModelApi(
         cfg=cfg,
         init=lambda gen, device=None, dtype=torch.float32: mod.init(

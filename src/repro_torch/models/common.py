@@ -9,6 +9,7 @@ so there is no kernel switch.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Sequence, Union
 
 import torch
@@ -45,21 +46,43 @@ def default_env(device: DeviceLike = None,
 # Initializers (explicit generator; weights in nn.Linear's (out, in) layout).
 # ---------------------------------------------------------------------------
 
+#: the most elements drawn in fp32 at once (1 GiB): a larger tensor, such as
+#: kimi-k2's (384, 7168, 2048) expert stack, is drawn slice by slice along
+#: its first axis and cast slice by slice, so that initialising it never
+#: holds the whole tensor in fp32
+DRAW_LIMIT = 1 << 28
+
+
+def _draw(shape: Sequence[int], draw, *, device: torch.device,
+          dtype: torch.dtype) -> torch.Tensor:
+    """``draw(t)`` fills an fp32 tensor in place; ``shape`` is filled from
+    fp32 draws of at most :data:`DRAW_LIMIT` elements, cast to ``dtype``.
+    A tensor within the limit is one draw, as ``draw`` on the whole."""
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_LIMIT // max(1, math.prod(shape[1:])))
+    for start in range(0, shape[0], rows):
+        t = torch.empty((min(rows, shape[0] - start),) + shape[1:],
+                        dtype=torch.float32, device=device)
+        out[start:start + t.shape[0]] = draw(t)
+    return out
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], *,
                device: torch.device, dtype: torch.dtype = torch.float32,
                in_axis: int = -1) -> torch.Tensor:
     """Truncated-normal fan-in init (1/sqrt(fan_in)), as the reference's
     ``dense_init``; drawn in fp32, then cast."""
-    fan_in = shape[in_axis]
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
-    return (t * fan_in ** -0.5).to(dtype)
+    scale = shape[in_axis] ** -0.5
+
+    def draw(t: torch.Tensor) -> torch.Tensor:
+        torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
+        return t * scale
+    return _draw(shape, draw, device=device, dtype=dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], *,
                device: torch.device,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=device)
-    return (t * 0.02).to(dtype)
-
+    return _draw(shape, lambda t: t.normal_(generator=gen) * 0.02,
+                 device=device, dtype=dtype)

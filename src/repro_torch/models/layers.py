@@ -1,10 +1,12 @@
-"""Model building blocks: RMS norm, RoPE, GQA attention, SwiGLU, embeddings.
+"""Model building blocks: RMS and layer norms, RoPE, GQA attention, the
+SwiGLU and GELU MLPs, embeddings.
 
 Plain functions over parameter dicts with the reference's key names.
 Projection weights are in ``nn.Linear``'s (out, in) layout and applied with
 ``F.linear``; causal attention over a prompt goes to the flash kernel
-(:func:`repro_torch.kernels.flash_attention.ops.flash_attention`), decode
-against a cache stays plain tensor code.
+(:func:`repro_torch.kernels.flash_attention.ops.flash_attention`); decode
+against a cache, non-causal (encoder) attention and cross-attention stay
+plain tensor code, as the reference runs them outside Pallas.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention.ops import flash_attention
-from .common import Env
+from .common import Env, dense_init
 
 Params = Dict[str, Any]
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -33,6 +35,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     y = xf * torch.rsqrt(var + eps)
     # zero-init scale with a (1 + scale) gain
     return (y * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +74,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Attention (GQA, optional bias) — prefill / decode
 # ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, d_model: int, num_heads: int,
+                   num_kv_heads: int, head_dim: int, qkv_bias: bool,
+                   kw: Dict[str, Any]) -> Params:
+    """``kw``: the ``device``/``dtype`` of every tensor."""
+    H, K, hd = num_heads, num_kv_heads, head_dim
+    p: Params = {"wq": dense_init(gen, (H * hd, d_model), **kw),
+                 "wk": dense_init(gen, (K * hd, d_model), **kw),
+                 "wv": dense_init(gen, (K * hd, d_model), **kw),
+                 "wo": dense_init(gen, (d_model, H * hd), **kw)}
+    if qkv_bias:
+        p["bq"] = torch.zeros(H * hd, **kw)
+        p["bk"] = torch.zeros(K * hd, **kw)
+        p["bv"] = torch.zeros(K * hd, **kw)
+    return p
+
 
 def _mha(env: Env, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool, q_offset: Optional[torch.Tensor] = None,
@@ -113,29 +141,44 @@ def _linear(x: torch.Tensor, w: torch.Tensor,
 
 def attention_block(env: Env, p: Params, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int, rope_theta: float,
-                    positions: torch.Tensor,
+                    positions: torch.Tensor, causal: bool = True,
                     kv_cache: Optional[KV] = None,
                     kv_len: Optional[torch.Tensor] = None,
-                    ) -> Tuple[torch.Tensor, KV]:
+                    cross_kv: Optional[KV] = None,
+                    use_rope: bool = True,
+                    ) -> Tuple[torch.Tensor, Optional[KV]]:
     """One attention sublayer (no norm/residual).
 
     Modes:
-    * prefill: kv_cache None -> causal self-attention over the prompt;
-      returns the fresh (k, v) so prefill can populate a cache.
+    * prefill: kv_cache None -> self-attention over the prompt (causal
+      unless ``causal=False``, as the whisper encoder's); returns the fresh
+      (k, v) so prefill can populate a cache.
     * decode: kv_cache=(k_cache, v_cache) of shape (B, S_max, K, hd); the
       single new (k, v) is written at ``positions`` IN PLACE and attention
       runs over the cache with ``kv_len`` masking.
+    * cross-attention: ``cross_kv`` precomputed from the encoder (masked by
+      ``kv_len`` if given); returns no cache.
+    ``use_rope=False`` leaves q and k unrotated (whisper).
     """
     B, Sq, _ = x.shape
     H, K, hd = num_heads, num_kv_heads, head_dim
     q = _linear(x, p["wq"], p.get("bq")).reshape(B, Sq, H, hd)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = _mha(env, q, k, v, causal=False, kv_len=kv_len)
+        return _linear(out.reshape(B, Sq, H * hd), p["wo"]), None
+
     k = _linear(x, p["wk"], p.get("bk")).reshape(B, Sq, K, hd)
     v = _linear(x, p["wv"], p.get("bv")).reshape(B, Sq, K, hd)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if use_rope:
+        k = apply_rope(k, positions, rope_theta)
 
     if kv_cache is None:
-        out = _mha(env, q, k, v, causal=True, q_offset=positions[:, 0])
+        out = _mha(env, q, k, v, causal=causal,
+                   q_offset=positions[:, 0] if causal else None)
         new_cache = (k, v)
     else:
         k_cache, v_cache = kv_cache
@@ -152,14 +195,37 @@ def attention_block(env: Env, p: Params, x: torch.Tensor, *, num_heads: int,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
+
+def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
+                kw: Dict[str, Any]) -> Params:
+    return {"wg": dense_init(gen, (d_ff, d_model), **kw),
+            "wu": dense_init(gen, (d_ff, d_model), **kw),
+            "wd": dense_init(gen, (d_model, d_ff), **kw)}
+
 
 def swiglu(env: Env, p: Params, x: torch.Tensor) -> torch.Tensor:
     g = _linear(x, p["wg"])
     u = _linear(x, p["wu"])
     h = F.silu(g.float()).to(x.dtype) * u
     return _linear(h, p["wd"])
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                  kw: Dict[str, Any]) -> Params:
+    return {"w1": dense_init(gen, (d_ff, d_model), **kw),
+            "b1": torch.zeros(d_ff, **kw),
+            "w2": dense_init(gen, (d_model, d_ff), **kw),
+            "b2": torch.zeros(d_model, **kw)}
+
+
+def gelu_mlp(env: Env, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """fc1 -> GELU -> fc2 with biases (whisper); the GELU is the reference's
+    ``jax.nn.gelu``, whose default is the tanh approximation."""
+    h = _linear(x, p["w1"], p["b1"])
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return _linear(h, p["w2"], p["b2"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""Decoder LM: the dense, ssm and hybrid families.
+"""Decoder LM: the dense, moe, vlm, ssm and hybrid families.
 
-* dense  : pre-norm GQA attention + SwiGLU per layer
-* ssm    : Mamba2 (SSD) block per layer (mamba2-370m)
-* hybrid : Mamba2 backbone + ONE weight-shared attention+SwiGLU block
-           applied after every ``attn_period``-th layer (zamba2)
+* dense, vlm : pre-norm GQA attention + SwiGLU per layer; vlm's prefill
+               takes ``patch_embeds`` in place of its first embeddings
+* moe        : pre-norm GQA attention + the MoE FFN (``models/moe.py``)
+* ssm        : Mamba2 (SSD) block per layer (mamba2-370m)
+* hybrid     : Mamba2 backbone + ONE weight-shared attention+SwiGLU block
+               applied after every ``attn_period``-th layer (zamba2)
 
 Entry points:
 
@@ -13,12 +15,12 @@ Entry points:
 * ``init_cache(cfg, batch, max_len, env, dtype)`` -> cache
 
 Params: ``embed`` (V, D), ``blocks`` — a list with one dict per layer
-(dense: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``, ``mlp.{wg,wu,wd}``; ssm
-and hybrid: ``ln1``, ``ssm.{in_proj,conv_w,conv_b,A_log,D,dt_bias,norm,
+(dense, vlm: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``, ``mlp.{wg,wu,wd}``;
+moe: ``moe.{router,wg,wu,wd[,shared]}`` in place of ``mlp``; ssm and
+hybrid: ``ln1``, ``ssm.{in_proj,conv_w,conv_b,A_log,D,dt_bias,norm,
 out_proj}``), the hybrid's ``shared`` attention+MLP block, ``final_norm``
 and, untied, ``head`` (V, D); projections in (out, in) layout.  The layer
-stack is a Python loop.  The other families of the reference (moe, vlm,
-audio) wait for their slices.
+stack is a Python loop.  The audio family is ``models/encdec.py``'s.
 """
 
 from __future__ import annotations
@@ -29,53 +31,44 @@ import torch
 
 from ..configs.base import ModelConfig
 from .common import Env, dense_init, embed_init, resolve_device
-from .layers import attention_block, embed, lm_head, rms_norm, swiglu
+from .layers import (attention_block, embed, init_attention, init_swiglu,
+                     lm_head, rms_norm, swiglu)
+from .moe import init_moe, moe_ffn
 from .ssm import init_ssm, ssm_block, ssm_dims
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
-_FAMILIES = ("dense", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 _SSM_FAMILIES = ("ssm", "hybrid")
-#: ROADMAP.md's item for each family this module does not carry yet
-_FAMILY_ITEM = {
-    "moe": "ROADMAP.md Queue 1, 'Other model families' (moe)",
-    "vlm": "ROADMAP.md Queue 1, 'Other model families' (vlm)",
-    "audio": "ROADMAP.md Queue 1, 'Other model families' (audio)",
-}
 
 
-def _require_ported(cfg: ModelConfig) -> None:
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _FAMILIES:
-        item = _FAMILY_ITEM.get(cfg.family, "ROADMAP.md Queue 1")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: {item}")
+        raise ValueError(f"family {cfg.family!r} ({cfg.name}) is not "
+                         "handled by transformer.py (audio: models/encdec.py)")
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_attn_mlp(cfg: ModelConfig, gen: torch.Generator,
+def _init_attn_ffn(cfg: ModelConfig, gen: torch.Generator,
                    kw: Dict[str, Any]) -> Params:
-    """A pre-norm attention + SwiGLU block: every dense layer, and the
-    hybrid's shared block."""
-    D, F_ = cfg.d_model, cfg.d_ff
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    attn = {"wq": dense_init(gen, (H * hd, D), **kw),
-            "wk": dense_init(gen, (K * hd, D), **kw),
-            "wv": dense_init(gen, (K * hd, D), **kw),
-            "wo": dense_init(gen, (D, H * hd), **kw)}
-    if cfg.qkv_bias:
-        attn["bq"] = torch.zeros(H * hd, **kw)
-        attn["bk"] = torch.zeros(K * hd, **kw)
-        attn["bv"] = torch.zeros(K * hd, **kw)
-    return {"ln1": torch.zeros(D, **kw),
-            "attn": attn,
-            "ln2": torch.zeros(D, **kw),
-            "mlp": {"wg": dense_init(gen, (F_, D), **kw),
-                    "wu": dense_init(gen, (F_, D), **kw),
-                    "wd": dense_init(gen, (D, F_), **kw)}}
+    """A pre-norm attention + FFN block: every dense, vlm and moe layer, and
+    the hybrid's shared block."""
+    D = cfg.d_model
+    p: Params = {"ln1": torch.zeros(D, **kw),
+                 "attn": init_attention(gen, D, cfg.num_heads,
+                                        cfg.num_kv_heads, cfg.head_dim,
+                                        cfg.qkv_bias, kw),
+                 "ln2": torch.zeros(D, **kw)}
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, D, cfg.d_ff, cfg.num_experts,
+                            cfg.shared_experts, kw)
+    else:
+        p["mlp"] = init_swiglu(gen, D, cfg.d_ff, kw)
+    return p
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, *,
@@ -85,7 +78,7 @@ def init(cfg: ModelConfig, gen: torch.Generator, *,
     truncated normal / sqrt(fan_in) for projections, normal x 0.02 for the
     embedding, zeros for the (1 + scale) norm gains, the reference's
     ``A_log``/``D``/``dt_bias`` for Mamba2 blocks."""
-    _require_ported(cfg)
+    _check_family(cfg)
     dev = resolve_device(device)
     D, V = cfg.d_model, cfg.vocab_size
     kw = dict(device=dev, dtype=dtype)
@@ -96,9 +89,9 @@ def init(cfg: ModelConfig, gen: torch.Generator, *,
                 gen, D, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
                 n_state=cfg.ssm_state, conv_width=cfg.ssm_conv_width, **kw)})
         else:
-            p["blocks"].append(_init_attn_mlp(cfg, gen, kw))
+            p["blocks"].append(_init_attn_ffn(cfg, gen, kw))
     if cfg.family == "hybrid":
-        p["shared"] = _init_attn_mlp(cfg, gen, kw)
+        p["shared"] = _init_attn_ffn(cfg, gen, kw)
     p["final_norm"] = torch.zeros(D, **kw)
     if not cfg.tie_embeddings:
         p["head"] = dense_init(gen, (V, D), **kw)
@@ -113,9 +106,11 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
                     positions: torch.Tensor, *,
                     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     kv_len: Optional[torch.Tensor] = None):
-    """Pre-norm attention + SwiGLU: a dense layer, or zamba2's
+    """Pre-norm attention + FFN: a dense, vlm or moe layer, or zamba2's
     weight-shared block (the reference's ``_shared_block``).  Returns
-    (x, new_kv)."""
+    (x, aux, new_kv): ``aux`` is the MoE layer's load-balance loss (None
+    for a SwiGLU block), which serving drops and training's ``forward``
+    (ROADMAP.md Queue 1, item 8) averages."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     a, new_kv = attention_block(
         env, bp["attn"], h, num_heads=cfg.num_heads,
@@ -124,7 +119,13 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
         kv_cache=kv_cache, kv_len=kv_len)
     x = x + a
     h = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + swiglu(env, bp["mlp"], h), new_kv
+    if cfg.family == "moe":
+        f, aux = moe_ffn(env, bp["moe"], h, num_experts=cfg.num_experts,
+                         experts_per_token=cfg.experts_per_token,
+                         capacity_factor=cfg.moe_capacity)
+    else:
+        f, aux = swiglu(env, bp["mlp"], h), None
+    return x + f, aux, new_kv
 
 
 def _logits(env: Env, cfg: ModelConfig, params: Params,
@@ -144,11 +145,11 @@ def _n_shared(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
                dtype: torch.dtype = torch.bfloat16) -> Cache:
-    """Dense: ``k``/``v`` (L, B, max_len, K, hd).  ssm/hybrid: ``state``
+    """Dense, vlm, moe: ``k``/``v`` (L, B, max_len, K, hd).  ssm/hybrid: ``state``
     (L, B, H, hd, N), fp32 whatever ``dtype`` is, and ``conv``
     (L, B, W-1, d_conv); the hybrid adds ``shared_k``/``shared_v``
     (L // attn_period, B, max_len, K, hd)."""
-    _require_ported(cfg)
+    _check_family(cfg)
     kw = dict(dtype=dtype, device=env.device)
     L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     if cfg.family not in _SSM_FAMILIES:
@@ -178,18 +179,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
 def prefill(env: Env, cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor],
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-    _require_ported(cfg)
+    """batch: tokens (B, S) int; vlm also ``patch_embeds`` (B, npatch, D),
+    which replace the first npatch token embeddings."""
+    _check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
     x = embed(env, params["embed"], tokens)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     cache = init_cache(cfg, B, max_len, env, dtype=x.dtype)
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_stack_prefill(env, cfg, params, x, positions, cache)
     else:
         for i, bp in enumerate(params["blocks"]):
-            x, (k, v) = _attn_ffn_block(env, cfg, bp, x, positions)
+            x, _, (k, v) = _attn_ffn_block(env, cfg, bp, x, positions)
             # the cache past the prompt stays zero, as the reference's padding
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -216,8 +222,8 @@ def _ssm_stack_prefill(env: Env, cfg: ModelConfig, params: Params,
         cache["conv"][idx] = conv
         if _shared_applies(cfg, idx):
             app = (idx + 1) // cfg.attn_period - 1
-            x, (k, v) = _attn_ffn_block(env, cfg, params["shared"], x,
-                                        positions)
+            x, _, (k, v) = _attn_ffn_block(env, cfg, params["shared"], x,
+                                           positions)
             cache["shared_k"][app, :, :S] = k
             cache["shared_v"][app, :, :S] = v
     return x
@@ -234,7 +240,7 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
 
     Returns (logits (B,1,V), cache); the cache is updated in place.
     """
-    _require_ported(cfg)
+    _check_family(cfg)
     tokens, pos = batch["tokens"], batch["pos"]
     x = embed(env, params["embed"], tokens)
     positions = pos[:, None].long()
@@ -243,9 +249,9 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
         x = _ssm_stack_decode(env, cfg, params, cache, x, positions, kv_len)
     else:
         for i, bp in enumerate(params["blocks"]):
-            x, _ = _attn_ffn_block(env, cfg, bp, x, positions,
-                                   kv_cache=(cache["k"][i], cache["v"][i]),
-                                   kv_len=kv_len)
+            x, _, _ = _attn_ffn_block(env, cfg, bp, x, positions,
+                                      kv_cache=(cache["k"][i], cache["v"][i]),
+                                      kv_len=kv_len)
     return _logits(env, cfg, params, x), cache
 
 
@@ -264,7 +270,7 @@ def _ssm_stack_decode(env: Env, cfg: ModelConfig, params: Params,
         cache["conv"][idx] = conv
         if _shared_applies(cfg, idx):
             app = (idx + 1) // cfg.attn_period - 1
-            x, _ = _attn_ffn_block(
+            x, _, _ = _attn_ffn_block(
                 env, cfg, params["shared"], x, positions,
                 kv_cache=(cache["shared_k"][app], cache["shared_v"][app]),
                 kv_len=kv_len)

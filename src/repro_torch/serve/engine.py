@@ -71,6 +71,24 @@ class ServeEngine:
                                     max_new_tokens, submitted=time.perf_counter()))
         return rid
 
+    def prefill_batch(self, prompt: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The prefill's inputs for one prompt: its tokens (1, S) and, as the
+        reference engine passes them, zero stand-ins for the stubbed
+        frontends in the compute dtype: whisper's encoder ``frames`` (1,
+        encoder_seq, D), phi-3-vision's ``patch_embeds`` (1, min(num_patches,
+        S), D)."""
+        cfg, dev = self.api.cfg, self.env.device
+        batch = {"tokens": torch.as_tensor(prompt[None, :], dtype=torch.long,
+                                           device=dev)}
+        stub = dict(dtype=self.env.compute_dtype, device=dev)
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (1, cfg.encoder_seq, cfg.d_model), **stub)
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (1, min(cfg.num_patches, len(prompt)), cfg.d_model), **stub)
+        return batch
+
     def has_work(self) -> bool:
         return bool(self.pending) or any(r is not None for r in self.slot_req)
 
@@ -96,10 +114,8 @@ class ServeEngine:
             req = self.pending.popleft()
             t0 = time.perf_counter()
             prompt = req.prompt[: self.max_len - req.max_new_tokens - 1]
-            tokens = torch.as_tensor(prompt[None, :], dtype=torch.long,
-                                     device=self.env.device)
             logits, cache1 = self.api.prefill(self.env, self.params,
-                                              {"tokens": tokens},
+                                              self.prefill_batch(prompt),
                                               max_len=self.max_len)
             self._insert_cache(slot, cache1)
             next_tok = int(torch.argmax(logits[0, -1]))
@@ -112,8 +128,9 @@ class ServeEngine:
             self.slot_last_token[slot] = next_tok
 
     def _insert_cache(self, slot: int, cache1: Dict[str, torch.Tensor]) -> None:
-        # an in-place slice copy of every entry (k/v; or state, conv and
-        # the hybrid's shared_k/v) into the device cache (the reference's
+        # an in-place slice copy of every entry (k/v and the
+        # encoder-decoder's cross_k/v; or state, conv and the hybrid's
+        # shared_k/v) into the device cache (the reference's
         # dynamic_update_slice builds a new array instead):
         # dst (L, B, ...), src (L, 1, ...)
         for name, dst in self.cache.items():

@@ -23,7 +23,7 @@ from repro.models.common import Env as JaxEnv
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Env, get_model, params_from_jax
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
 TOL = 1e-4
 CPU = torch.device("cpu")
@@ -112,10 +112,15 @@ def test_init_follows_reference_distributions():
     assert float(p["blocks"][1]["ln2"].abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
-def test_other_families_name_their_roadmap_item(family):
-    cfg = ModelConfig(name=f"x-{family}", family=family, num_layers=1,
-                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=64,
-                      vocab_size=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transformer.init(cfg, torch.Generator(), device="cpu")
+def test_moe_ffn_names_its_roadmap_item_for_expert_parallelism():
+    cfg = ModelConfig(name="x-moe", family="moe", num_layers=1, d_model=16,
+                      num_heads=2, num_kv_heads=2, d_ff=8, vocab_size=32,
+                      num_experts=4, experts_per_token=2)
+    p = transformer.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    x = torch.zeros((1, 2, 16))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+        moe.moe_ffn(TENV, p["blocks"][0]["moe"], x, num_experts=4,
+                    experts_per_token=2, tp=2)
+    y, aux = moe.moe_ffn(TENV, p["blocks"][0]["moe"], x, num_experts=4,
+                         experts_per_token=2)
+    assert tuple(y.shape) == (1, 2, 16) and aux.ndim == 0
