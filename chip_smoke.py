@@ -132,7 +132,30 @@ Phases, each of which exits non-zero on failure:
    one warm diamond frame is traced (device kernels, device and wall ms).
    Each path runs with the launch counts set to 0 just before and read
    just after; every parse_xml launch among them must take the vector
-   path.  One ``{"stream": ...}`` line carries it all.
+   path.  One ``{"stream": ...}`` line carries it all;
+10. train: (a) flash at minicpm-2b's training shape (B 4, S 1024, H = K =
+   36, hd 64) and a GQA one (32/8, hd 128), SSD at mamba2-370m's (Bt 4,
+   S 1024, H 32, P 64, N 128, chunk 256), all bf16 under autograd: the
+   forward against the plain version at phase 3's tolerances, the
+   gradients (the backward recomputes through the plain version) against
+   autograd through the plain version on the same inputs; one causal
+   attention's forward and backward timed through the port's op, the
+   plain version and SDPA (a yardstick only).  (b-c) minicpm-2b and
+   mamba2-370m trained through ``launch/train.py``'s ``run_training`` at
+   full width and depth (bf16 compute over fp32 master params and AdamW
+   state, remat, the config's schedule, batch 4 x seq 1024, 8 steps on
+   ``SyntheticTokens``, weights drawn on the card from a seed), both
+   launch counts set to 0 just before and read just after: flash 2 x 40
+   and SSD 2 x 48 a step (remat runs each layer's forward twice); step
+   time p50, tokens/s, peak device memory, the first and last loss, and
+   one traced step (device kernels, busy share, top kernels) in one
+   ``{"train": ...}`` and one ``{"profile": ...}`` line each.  (d) For
+   each family at a small size in fp32, one train step on the card
+   against the same step on the CPU: loss, every gradient, the new params
+   and moments; MoE's routing decisions equal.  (e) A reduced minicpm
+   (bf16, bf16 ``mu``) saved after step 2, restored into a freshly drawn
+   state on the card bit-equal to what was saved, and its next two losses
+   against the uninterrupted run's.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
@@ -2067,7 +2090,7 @@ def serve_phase(dev: torch.device, port_kernels: set) -> dict:
 def agreement_phase(dev: torch.device) -> None:
     """Phase 6."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import scale_config
+    from repro_torch.launch.train import scale_config
     from repro_torch.models import Env, get_model
     from repro_torch.models import moe as moe_module
     from repro_torch.serve import ServeEngine
@@ -2159,6 +2182,456 @@ def agreement_phase(dev: torch.device) -> None:
                 not same_tokens:
             fail(f"{arch}: the port on the card disagrees with the same "
                  "model on the CPU")
+
+
+# phase 10: training at full width and depth on the card, neither batch nor
+# depth cut: minicpm-2b's fp32 master, AdamW moments and bf16 working copy
+# and gradients are 43.6 GB (its peak with activations, the head's logits and
+# one layer's plain fp32 attention backward was 49.2 GB on "NVIDIA H100 80GB
+# HBM3, 700.00 W"); mamba2-370m's are 5.9 GB
+TRAINED = ("minicpm-2b", "mamba2-370m")
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+# (a) the kernels under autograd: forward at phase 3's tolerances; the
+# gradients against autograd through the plain version on the same inputs
+# (bf16 tolerance), a plumbing check only (hd padding, argument order,
+# which output each gradient belongs to): the backward is that very
+# computation.  Gradient parity is held on the CPU against the reference's
+# custom_vjp (tests/test_torch_train_kernels.py)
+TRAIN_GRAD_TOL = 2e-2
+# (d) one fp32 train step on the card against the CPU: loss 1e-4; each
+# gradient and moment leaf 1e-4 relative and 1e-4 of the leaf's largest
+# element (up to 1), floor 1e-8; new params 1e-4 relative plus 1e-4 of lr,
+# plus what the two clipped gradients' difference moves AdamW's first step
+# (see train_agreement)
+TRAIN_AGREE_TOL = 1e-4
+TRAIN_AGREE_OPT = dict(lr=1e-3, warmup=0, total_steps=10)
+# (e) the loss of the steps after a restore against the uninterrupted run's
+# (bf16 compute; the embedding's backward adds by atomics on the card)
+RESUME_TOL = 1e-3
+
+
+def train_kernel_checks(dev: torch.device) -> dict:
+    """Phase 10a: flash and SSD under autograd at the training shapes."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def plain_flash(q, k, v):
+        return reference_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2)).transpose(1, 2)
+
+    def grads(fn, inputs, weights):
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        outs = fn(*ts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.autograd.backward(outs, [w.to(o.dtype)
+                                       for o, w in zip(outs, weights)])
+        return [o.detach() for o in outs], [t.grad for t in ts]
+
+    def err(a, b, tol):
+        d = (a.float() - b.float()).abs()
+        return float(d.max()), bool(
+            torch.isfinite(a.float()).all()
+            and (d <= tol + tol * b.float().abs()).all())
+
+    out = {}
+    flash_cases = (("minicpm_train", TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64),
+                   ("gqa_train", 2, TRAIN_SEQ, 32, 8, 128))
+    for name, B, S, H, K, hd in flash_cases:
+        inputs = (randn((B, S, H, hd)), randn((B, S, K, hd)),
+                  randn((B, S, K, hd)))
+        w = [randn((B, S, H, hd), torch.float32)]
+        (y,), g = grads(ops.flash_attention, inputs, w)
+        (y_ref,), g_ref = grads(plain_flash, inputs, w)
+        fwd_err, fwd_ok = err(y, y_ref, TOLS[torch.bfloat16])
+        g_errs = [err(a, b, TRAIN_GRAD_TOL) for a, b in zip(g, g_ref)]
+        ok = fwd_ok and all(o for _, o in g_errs)
+        print(f"train kernel [{name}] flash B={B} S={S} H={H} K={K} hd={hd} "
+              f"bf16: forward max_abs_err {fwd_err:.3g} (tol "
+              f"{TOLS[torch.bfloat16]:g} abs + rel), dq/dk/dv max_abs_err "
+              + "/".join(f"{e:.3g}" for e, _ in g_errs)
+              + f" (tol {TRAIN_GRAD_TOL:g} abs + rel; a plumbing check, hd "
+              f"padding and argument order: the backward is autograd "
+              f"through the plain version, so it reads 0 when wired right) "
+              f"{'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"flash under autograd disagrees with the plain version on "
+                 f"{name}")
+        out[name] = fwd_err
+        del inputs, w, y, y_ref, g, g_ref
+
+    # one causal attention of minicpm's training step, forward and
+    # backward: the port's op (kernel forward, plain recompute backward),
+    # the plain version throughout, and SDPA's (a yardstick only)
+    B, S, H, hd = TRAIN_BATCH, TRAIN_SEQ, 36, 64
+    q, k, v = (randn((B, S, H, hd)).requires_grad_() for _ in range(3))
+    g_out = randn((B, S, H, hd))
+
+    def fwd_bwd(fn):
+        def run():
+            torch.autograd.backward(fn(q, k, v), g_out)
+        return run
+    fns = {"port": fwd_bwd(ops.flash_attention), "plain": fwd_bwd(plain_flash),
+           "library": fwd_bwd(lambda q, k, v: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), is_causal=True)
+                              .transpose(1, 2))}
+    ev = time_abba(fns, ("plain", "port", "library"))
+    dev_ms = {n: device_ms(fn, iters=5, warmup=1)[0] for n, fn in fns.items()}
+    print(f"train attention fwd+bwd at B={B} S={S} H=K={H} hd={hd} bf16, "
+          f"device ms per call (profiler, 5 calls): port {dev_ms['port']:.6f} "
+          f"plain {dev_ms['plain']:.6f} library (SDPA) "
+          f"{dev_ms['library']:.6f}; event ms (ABBA): port {ev['port']:.6f} "
+          f"plain {ev['plain']:.6f} library {ev['library']:.6f}", flush=True)
+    out["attention_fwd_bwd_ms"] = dev_ms
+    del q, k, v, g_out, fns
+
+    Bt, S, H, P, N, chunk = TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 256
+    inputs = (randn((Bt, S, H, P)),
+              0.01 + 0.19 * torch.rand((Bt, S, H), generator=gen, device=dev),
+              -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev)),
+              randn((Bt, S, N)), randn((Bt, S, N)))
+    w = [randn((Bt, S, H, P), torch.float32),
+         randn((Bt, H, P, N), torch.float32)]
+    (y, s), g = grads(lambda *a: ssd_ops.ssd_scan(*a, chunk=chunk), inputs, w)
+    (y_ref, s_ref), g_ref = grads(lambda *a: ssd_reference(*a, chunk=chunk),
+                                  inputs, w)
+    y_err, y_ok = err(y, y_ref, SSD_Y_TOLS[torch.bfloat16])
+    s_err, s_ok = err(s, s_ref, SSD_STATE_TOL)
+    g_errs = [err(a, b, TRAIN_GRAD_TOL) for a, b in zip(g, g_ref)]
+    ok = y_ok and s_ok and all(o for _, o in g_errs)
+    print(f"train kernel [mamba2_train] ssd Bt={Bt} S={S} H={H} P={P} N={N} "
+          f"chunk={chunk} bf16: y max_abs_err {y_err:.3g} (tol "
+          f"{SSD_Y_TOLS[torch.bfloat16]:g}), state {s_err:.3g} (tol "
+          f"{SSD_STATE_TOL:g}); dx/ddt/dA/dB/dC max_abs_err "
+          + "/".join(f"{e:.3g}" for e, _ in g_errs)
+          + f" (tol {TRAIN_GRAD_TOL:g} abs + rel; a plumbing check: the "
+          f"backward is autograd through the plain version, so it reads 0 "
+          f"when wired right) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("SSD under autograd disagrees with the plain version")
+    out["mamba2_train"] = y_err
+    return out
+
+
+def profile_train_step(name: str, step_fn, state, batch, wall_ms: float,
+                       ours: set) -> dict:
+    """One traced train step: device kernels, busy ms and share of the
+    untraced step's p50, the top kernels and the port's kernels' ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print(f"profile [{name} train step]: the profiler saw no device "
+              "kernels (busy share not measured)")
+        return {"busy_share": None}
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    port_ms: dict = {}
+    for k, us in by_name.items():
+        label = kernel_label(k)
+        if label.split("<")[0] in ours:
+            port_ms[label] = port_ms.get(label, 0.0) + us / 1e3
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    rec = {"arch": name, "step": "train", "device_kernels": len(kernels),
+           "device_busy_ms": busy_ms, "wall_ms_p50": wall_ms,
+           "busy_share": busy_ms / wall_ms, "port_kernels_ms": port_ms,
+           "top_ms": [[k[:100], v / 1e3] for k, v in top]}
+    print(json.dumps({"profile": rec}), flush=True)
+    return rec
+
+
+def train_runs(dev: torch.device, ours: set) -> dict:
+    """Phase 10b-c: each TRAINED model through launch/train.py's
+    ``run_training`` with both launch counts set to 0 just before and read
+    just after; returns each kernel's launches by model."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.train import run_training
+    from repro_torch.train import AdamWConfig, adamw_update
+    from repro_torch.train.tree import tree_map
+
+    counters = {"flash": kernel, "ssd": ssd_kernel}
+    launches = {name: {} for name in counters}
+    for arch in TRAINED:
+        cfg = get_config(arch)
+        # remat runs each layer's forward twice a step: once forward, once
+        # recomputed in the backward
+        per_step = {"flash": 2 * (0 if cfg.family == "ssm" else
+                                  cfg.num_layers),
+                    "ssd": 2 * (cfg.num_layers if cfg.family == "ssm"
+                                else 0)}
+        for mod in counters.values():
+            mod.reset_launch_count()
+        res = run_training(cfg, device="cuda", steps=TRAIN_STEPS,
+                           batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+                           log_every=TRAIN_STEPS)
+        counts = {name: mod.launch_count() for name, mod in counters.items()}
+        expected = {name: n * TRAIN_STEPS for name, n in per_step.items()}
+        for name, n in counts.items():
+            launches[name][arch] = n
+        losses = res["losses"]
+        rec = {
+            "arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "params": cfg.param_count(),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": res["steps"],
+            "dtype": "bf16 compute, fp32 master and AdamW", "remat": True,
+            "schedule": cfg.lr_schedule,
+            "step_ms_p50": res["step_ms_p50"], "step_ms": res["step_ms"],
+            "tokens_per_s": res["tokens_per_s"], "wall_s": res["wall_s"],
+            "peak_mem_bytes": res["peak_mem_bytes"],
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "flash_launches": counts["flash"], "ssd_launches": counts["ssd"],
+            "flash_per_step": counts["flash"] / res["steps"],
+            "ssd_per_step": counts["ssd"] / res["steps"],
+            "expected_launches": expected}
+        print(json.dumps({"train": rec}), flush=True)
+        if counts != expected:
+            fail(f"{arch} training: kernel launches {counts}, expected "
+                 f"{expected}")
+        if not all(np.isfinite(losses)):
+            fail(f"{arch} training: a loss is not finite: {losses}")
+        if not res["peak_mem_bytes"] < CARD_BYTES:
+            fail(f"{arch} training: peak device memory "
+                 f"{res['peak_mem_bytes']} B is not under {CARD_BYTES:.0f}")
+        profile_train_step(cfg.name, res["train_step"], res["state"],
+                           res["batch"], res["step_ms_p50"], ours)
+        # the optimizer's share of a step: one AdamW update of this state
+        # (its cost does not depend on the gradients' values)
+        state = res["state"]
+        opt = AdamWConfig(warmup=10, total_steps=TRAIN_STEPS,
+                          schedule=cfg.lr_schedule)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.bfloat16),
+                         state.params)
+        adamw_ms = time_ms(lambda: adamw_update(grads, state.opt,
+                                                state.params, opt),
+                           iters=3, warmup=1)
+        print(f"train optimizer [{cfg.name}]: one adamw_update over "
+              f"{cfg.param_count()} fp32 params (bf16 gradients, in place) "
+              f"{adamw_ms:.3f} ms (events, 3 calls) of the step's "
+              f"{res['step_ms_p50']:.3f} ms p50", flush=True)
+        del res, state, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def train_agreement(dev: torch.device) -> None:
+    """Phase 10d: one fp32 train step of each family at a small size on the
+    card against the same step on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import scale_config
+    from repro_torch.models import Env, get_model
+    from repro_torch.models import moe as moe_module
+    from repro_torch.train import AdamWConfig, make_loss_fn, make_train_step
+    from repro_torch.train.train_step import TrainState, _working_copy, \
+        value_and_grad
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.tree import tree_leaves_with_path, tree_map
+
+    opt = AdamWConfig(**TRAIN_AGREE_OPT)
+    envs = {"cpu": Env(torch.device("cpu"), torch.float32),
+            "cuda": Env(dev, torch.float32)}
+    rng = np.random.default_rng(SEED + 2)
+    for arch in AGREEMENT:
+        small = scale_config(get_config(arch), "10m")
+        if small.family == "ssm":      # several chunks, the last one ragged
+            small = dataclasses.replace(small, ssm_chunk=32)
+        if small.family == "hybrid":   # the shared block runs at 4 layers
+            small = dataclasses.replace(
+                small, attn_period=small.num_layers // 2)
+        api = get_model(small)
+        params = api.init(torch.Generator().manual_seed(SEED), device="cpu")
+        tokens = rng.integers(0, small.vocab_size, (2, 100))
+        extra = {}
+        if small.family == "audio":
+            extra["frames"] = rng.normal(size=(2, small.encoder_seq,
+                                               small.d_model))
+        if small.family == "vlm":
+            extra["patch_embeds"] = rng.normal(size=(2, small.num_patches,
+                                                     small.d_model))
+        got, routes = {}, {}
+        for name, env in envs.items():
+            batch = {"tokens": torch.as_tensor(tokens, device=env.device),
+                     "labels": torch.as_tensor(np.roll(tokens, -1, axis=1),
+                                               device=env.device),
+                     **{k: torch.as_tensor(v, dtype=torch.float32,
+                                           device=env.device)
+                        for k, v in extra.items()}}
+            # a copy on each device: the train step updates it in place
+            p = tree_map(lambda t: t.to(env.device, copy=True), params)
+            with recorded_calls(moe_module, "_route") as calls:
+                (loss, _), grads = value_and_grad(
+                    make_loss_fn(api, env), _working_copy(p, torch.float32),
+                    batch)
+                new, _ = make_train_step(api, env, opt)(
+                    TrainState(p, adamw_init(p, opt)), batch)
+            routes[name] = [out[2].cpu() for _, _, out in calls]
+            got[name] = (float(loss),
+                         [(k, t.cpu()) for k, t in
+                          tree_leaves_with_path(grads)],
+                         [(k, t.cpu()) for k, t in
+                          tree_leaves_with_path(new)])
+        def worst(pairs_cpu, pairs_card):
+            """Largest difference, and whether each leaf is within
+            TRAIN_AGREE_TOL relative and of the leaf's scale (up to 1)."""
+            out, ok = 0.0, True
+            for (_, a), (_, b) in zip(pairs_cpu, pairs_card):
+                a, b = a.float(), b.float()
+                d = (a - b).abs()
+                out = max(out, float(d.max()))
+                ok &= bool((d <= TRAIN_AGREE_TOL * a.abs() + TRAIN_AGREE_TOL
+                            * min(1.0, float(a.abs().max())) + 1e-8).all())
+            return out, ok
+
+        def split(pairs, prefix):
+            return [(k, t) for k, t in pairs if k.startswith(prefix)]
+        loss_err = abs(got["cpu"][0] - got["cuda"][0])
+        g_err, g_ok = worst(got["cpu"][1], got["cuda"][1])
+        m_err, m_ok = worst(split(got["cpu"][2], "opt/"),
+                            split(got["cuda"][2], "opt/"))
+        # the params: AdamW's first step moves an element by lr * u(G),
+        # u(G) = G / (|G| + eps), G the clipped gradient, mu = (1 - b1) G.
+        # Each device's G comes from its own mu, and by the mean value
+        # theorem |u(G_cpu) - u(G_card)| <= eps |G_cpu - G_card| / (m +
+        # eps)^2, m the smaller |G| (0 where the signs differ): that, times
+        # lr (at most 2 lr), is added to 1e-4 relative plus 1e-4 of lr
+        cpu_mu = dict(split(got["cpu"][2], "opt/mu/"))
+        card_mu = dict(split(got["cuda"][2], "opt/mu/"))
+        p_err, p_ok, n_wide, wide_g, wide_lr = 0.0, True, 0, 0.0, 0.0
+        for (k, a), (_, b) in zip(split(got["cpu"][2], "params/"),
+                                  split(got["cuda"][2], "params/")):
+            key = "opt/mu/" + k[len("params/"):]
+            g_a = cpu_mu[key].float() / (1 - opt.b1)
+            g_b = card_mu[key].float() / (1 - opt.b1)
+            m = torch.where(g_a * g_b > 0, torch.minimum(g_a.abs(),
+                                                         g_b.abs()), 0.0)
+            moved = opt.lr * torch.clamp(
+                opt.eps * (g_a - g_b).abs() / (m + opt.eps) ** 2, max=2.0)
+            base = TRAIN_AGREE_TOL * a.abs() + TRAIN_AGREE_TOL * opt.lr
+            wide = moved > base
+            n_wide += int(wide.sum())
+            if wide.any():
+                wide_g = max(wide_g, float(g_a.abs()[wide].max()))
+                wide_lr = max(wide_lr, float(moved.max()) / opt.lr)
+            d = (a - b).abs()
+            p_err = max(p_err, float(d.max()))
+            p_ok &= bool((d <= base + moved).all())
+        same_routes = len(routes["cpu"]) == len(routes["cuda"]) and all(
+            torch.equal(a, b) for a, b in zip(routes["cpu"], routes["cuda"]))
+        ok = (loss_err <= TRAIN_AGREE_TOL and g_ok and m_ok and p_ok
+              and same_routes)
+        print(f"train agreement at {small.name} fp32 (batch 2 x 100): loss "
+              f"{got['cuda'][0]:.6f}, |card - cpu| {loss_err:.3g}; gradients "
+              f"max_abs_err {g_err:.3g}, moments after one step {m_err:.3g} "
+              f"(tol {TRAIN_AGREE_TOL:g} relative and of the leaf's scale); "
+              f"params {p_err:.3g} (tol {TRAIN_AGREE_TOL:g} relative + "
+              f"{TRAIN_AGREE_TOL:g} lr + lr eps |dG| / (min |G| + eps)^2, "
+              f"the first step's sensitivity to the clipped gradients' "
+              f"difference; wider than the base at {n_wide} elements, the "
+              f"largest CPU |G| among them {wide_g:.3g}, the widest "
+              f"{wide_lr:.3g} lr)"
+              + (f"; routing decisions equal: {same_routes} "
+                 f"({len(routes['cuda'])} router calls)"
+                 if small.family == "moe" else "")
+              + f" {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"{arch}: a train step on the card disagrees with the CPU")
+
+
+def train_resume(dev: torch.device) -> None:
+    """Phase 10e: save after step 2, restore into a fresh state, the
+    restored tensors bit-equal to the saved ones, and the next steps'
+    losses against the uninterrupted run's."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import scale_config
+    from repro_torch.models import default_env, get_model
+    from repro_torch.train import (AdamWConfig, Checkpointer,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.tree import tree_leaves_with_path
+
+    cfg = scale_config(get_config("minicpm-2b"), "100m")
+    api, env = get_model(cfg), default_env(dev)
+    opt = AdamWConfig(lr=1e-3, warmup=2, total_steps=20,
+                      schedule=cfg.lr_schedule, mu_dtype=torch.bfloat16)
+    src = SyntheticTokens(256, 4, cfg.vocab_size, seed=SEED)
+    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                for k, v in src.next().items()} for _ in range(4)]
+    step = make_train_step(api, env, opt)
+
+    def fresh(seed):
+        return init_train_state(api, torch.Generator(device=dev)
+                                .manual_seed(seed), opt, device=dev)
+    state = fresh(SEED)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    saved = [(k, t.clone()) for k, t in tree_leaves_with_path(state)]
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        ckpt = Checkpointer(d)
+        t0 = time.perf_counter()
+        ckpt.save(2, state, extra={"arch": cfg.name})
+        t_snap = time.perf_counter() - t0
+        ckpt.wait()
+        t_write = time.perf_counter() - t0
+        restored, at, extra = ckpt.restore(fresh(SEED + 1))
+    leaves = tree_leaves_with_path(restored)
+    equal = at == 2 and [k for k, _ in leaves] == [k for k, _ in saved] and \
+        all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+            for (_, a), (_, b) in zip(leaves, saved))
+    losses = {"uninterrupted": [], "restored": []}
+    for name, st in (("uninterrupted", state), ("restored", restored)):
+        for b in batches[2:]:
+            st, m = step(st, b)
+            losses[name].append(float(m["loss"]))
+    diffs = [abs(a - b) / abs(b) for a, b in zip(losses["restored"],
+                                                  losses["uninterrupted"])]
+    ok = equal and max(diffs) <= RESUME_TOL
+    nbytes = sum(t.numel() * t.element_size() for _, t in saved)
+    print(f"train resume [{cfg.name} bf16, bf16 mu, batch 4 x 256]: "
+          f"{len(saved)} leaves, {nbytes} B saved at step 2 (snapshot "
+          f"{t_snap:.3f} s, written {t_write:.3f} s), restored on {dev} "
+          f"bit-equal: {equal}; steps 3-4 loss restored "
+          f"{losses['restored']} vs uninterrupted {losses['uninterrupted']}, "
+          f"relative difference {max(diffs):.3g} (tol {RESUME_TOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("a checkpoint restored on the card does not resume the run")
+
+
+def launch_total(by_path: dict) -> int:
+    """Launches of a nested {path: count or {model: count}} record."""
+    return sum(launch_total(v) if isinstance(v, dict) else v
+               for v in by_path.values())
+
+
+def train_phase(dev: torch.device, ours: set) -> dict:
+    """Phase 10; returns each kernel's launches by trained model."""
+    train_kernel_checks(dev)
+    launches = train_runs(dev, ours)
+    train_agreement(dev)
+    train_resume(dev)
+    return launches
 
 
 def main() -> int:
@@ -2417,12 +2890,18 @@ def main() -> int:
     sweep_entry["launches"] += runtime_sweeps
     sweep_entry["launches_by_path"]["runtime"] = runtime_sweeps
 
+    # 10. train: the kernels under autograd, minicpm-2b and mamba2-370m at
+    # full width and depth, agreement with the CPU, resume -----------------
+    trained = train_phase(dev, port_kernels)
+    for name in ("flash", "ssd"):
+        launches[name]["train"] = trained[name]
+
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:34",
-        "launches": sum(launches["flash"].values()),
+        "launches": launch_total(launches["flash"]),
         "launches_by_path": launches["flash"],
         "max_abs_err": errors["serving"],
         "max_abs_err_by_case": errors,
@@ -2441,7 +2920,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_fwd.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:26",
-        "launches": sum(launches["ssd"].values()),
+        "launches": launch_total(launches["ssd"]),
         "launches_by_path": launches["ssd"],
         "max_abs_err": ssd_errors["mamba2"],
         "ms": ssd_ms,

@@ -10,9 +10,11 @@
   (:mod:`.kernel`) or raises; on CPU tensors runs the plain PyTorch version
   (:mod:`.ref`).  There is no fallback from one to the other.
 
-Forward only: the reference's ``custom_vjp`` backward (recompute through the
-plain version) is training work and becomes a ``torch.autograd.Function``
-in a later slice.
+It is a ``torch.autograd.Function``, as the reference's op is a
+``custom_vjp``: the backward recomputes the attention through the plain
+version on the unpadded operands and differentiates it (on both devices),
+trading one more forward's FLOPs for not keeping the (Sq, Skv) scores.
+``q_offset`` is integer and takes no gradient.
 """
 
 from __future__ import annotations
@@ -41,22 +43,47 @@ def _to_kernel_layout(x: torch.Tensor, hd_pad: int) -> torch.Tensor:
     return x.contiguous()
 
 
+def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_offset: torch.Tensor) -> torch.Tensor:
+    """The plain version in model layout, at the operands' own hd."""
+    return reference_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), q_offset=q_offset,
+                               sm_scale=q.shape[-1] ** -0.5).transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset):
+        hd = q.shape[-1]
+        hd_pad = _padded_hd(hd)
+        qt, kt, vt = (_to_kernel_layout(t, hd_pad) for t in (q, k, v))
+        if q.device.type == "cuda":
+            out = kernel.flash_attention_fwd(qt, kt, vt, q_offset=q_offset,
+                                             sm_scale=hd ** -0.5)
+        elif q.device.type == "cpu":
+            out = reference_attention(qt, kt, vt, q_offset=q_offset,
+                                      sm_scale=hd ** -0.5)
+        else:
+            raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, q_offset)
+        return out[..., :hd].transpose(1, 2)   # back to (B, Sq, H, hd)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_offset = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = _plain(*qkv, q_offset)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Model-layout causal GQA attention forward."""
-    B, Sq, H, hd = q.shape
-    sm_scale = hd ** -0.5
+    """Model-layout causal GQA attention; differentiable in q, k, v."""
     if q_offset is None:
-        q_offset = torch.zeros((B,), dtype=torch.int32, device=q.device)
+        q_offset = torch.zeros((q.shape[0],), dtype=torch.int32,
+                               device=q.device)
     q_offset = q_offset.to(device=q.device, dtype=torch.int32).contiguous()
-    hd_pad = _padded_hd(hd)
-    qt, kt, vt = (_to_kernel_layout(t, hd_pad) for t in (q, k, v))
-    if q.device.type == "cuda":
-        out = kernel.flash_attention_fwd(qt, kt, vt, q_offset=q_offset,
-                                         sm_scale=sm_scale)
-    elif q.device.type == "cpu":
-        out = reference_attention(qt, kt, vt, q_offset=q_offset,
-                                  sm_scale=sm_scale)
-    else:
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return out[..., :hd].transpose(1, 2)       # back to (B, Sq, H, hd)
+    return _FlashAttention.apply(q, k, v, q_offset)

@@ -9,10 +9,12 @@ A: (H,), B/C: (Bt, S, N) (the layout ``ssm_block`` produces):
   or raises; on CPU tensors runs the plain PyTorch version (:mod:`.ref`).
   There is no fallback from one to the other.
 
-The chunk length is Q = min(chunk, S) on both paths.  Forward only: the
-reference's ``custom_vjp`` backward (recompute through the plain version)
-is training work and becomes a ``torch.autograd.Function`` in a later
-slice.
+The chunk length is Q = min(chunk, S) on both paths.  It is a
+``torch.autograd.Function``, as the reference's op is a ``custom_vjp``: the
+backward recomputes the scan through the plain version and differentiates
+both outputs, y and the final state, with respect to x, dt, A, B, C and
+``init_state`` (zeros when none is given, whose gradient then goes
+nowhere).
 """
 
 from __future__ import annotations
@@ -25,19 +27,45 @@ from . import kernel
 from .ref import ssd_reference
 
 
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, init_state, chunk):
+        args = [t.contiguous() for t in (x, dt, A, B, C)]
+        if init_state is not None:
+            init_state = init_state.contiguous()
+        if x.device.type == "cuda":
+            y, state = kernel.ssd_scan_fwd(*args, chunk=chunk,
+                                           init_state=init_state)
+        elif x.device.type == "cpu":
+            y, state = ssd_reference(*args, chunk=chunk,
+                                     init_state=init_state)
+        else:
+            raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
+        ctx.chunk = chunk
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in saved[:5]]
+            init = saved[5]
+            if init is not None:
+                init = init.detach().requires_grad_()
+                inputs.append(init)
+            outs = ssd_reference(*inputs[:5], chunk=ctx.chunk,
+                                 init_state=init)
+            grads = torch.autograd.grad(outs, inputs, (gy, gstate))
+        if init is None:
+            grads = grads + (None,)
+        return (*grads, None)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int,
              init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dt, A and init_state fp32; B/C in x's dtype.  Returns (y (Bt, S, H,
-    P) in x's dtype, final_state (Bt, H, P, N) fp32)."""
-    x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
-    if init_state is not None:
-        init_state = init_state.contiguous()
-    if x.device.type == "cuda":
-        return kernel.ssd_scan_fwd(x, dt, A, B, C, chunk=chunk,
-                                   init_state=init_state)
-    if x.device.type == "cpu":
-        return ssd_reference(x, dt, A, B, C, chunk=chunk,
-                             init_state=init_state)
-    raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    P) in x's dtype, final_state (Bt, H, P, N) fp32), both differentiable."""
+    return _SSDScan.apply(x, dt, A, B, C, init_state, chunk)

@@ -14,7 +14,6 @@ Flags as the reference's ``python -m repro.launch.serve``, plus
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -25,32 +24,7 @@ from ..configs import get_config
 from ..configs.base import ModelConfig
 from ..models import default_env, get_model
 from ..serve import ServeEngine, plan_serving
-
-
-def scale_config(cfg: ModelConfig, scale: str) -> ModelConfig:
-    """Derive a runnable-size config of the same family."""
-    if scale == "full":
-        return cfg
-    presets = {
-        "100m": dict(num_layers=8, d_model=512, num_heads=8, num_kv_heads=4,
-                     head_dim=64, d_ff=2048, vocab_size=32768),
-        "10m": dict(num_layers=4, d_model=256, num_heads=4, num_kv_heads=2,
-                    head_dim=64, d_ff=1024, vocab_size=8192),
-    }
-    kw = dict(presets[scale])
-    if cfg.family in ("ssm", "hybrid"):
-        kw.pop("num_heads"), kw.pop("num_kv_heads"), kw.pop("head_dim")
-        if cfg.family == "ssm":
-            kw["d_ff"] = 0
-    if cfg.family == "moe":
-        kw.update(num_experts=min(cfg.num_experts, 8),
-                  experts_per_token=min(cfg.experts_per_token, 2),
-                  d_ff=512)
-    if cfg.family == "audio":
-        kw.update(encoder_layers=4, encoder_seq=64)
-    if cfg.family == "vlm":
-        kw.update(num_patches=16)
-    return dataclasses.replace(cfg, **kw, name=cfg.name + f"-{scale}")
+from .train import scale_config
 
 
 def run_serving(cfg: ModelConfig, *, device: Optional[str] = None,

@@ -17,6 +17,7 @@ Params = Dict[str, Any]
 class ModelApi:
     cfg: ModelConfig
     init: Callable[..., Params]
+    forward: Callable[..., Tuple[torch.Tensor, torch.Tensor]]
     prefill: Callable[..., Tuple[torch.Tensor, Dict]]
     decode_step: Callable[..., Tuple[torch.Tensor, Dict]]
     init_cache: Callable[..., Dict]
@@ -24,13 +25,14 @@ class ModelApi:
 
 def get_model(cfg: ModelConfig) -> ModelApi:
     """The entry points of ``cfg``'s family bound to ``cfg``: the
-    encoder-decoder for audio, the decoder for every other family.  The
-    training ``forward`` waits for its slice (ROADMAP.md Queue 1, item 8)."""
+    encoder-decoder for audio, the decoder for every other family."""
     mod = encdec if cfg.family == "audio" else transformer
     return ModelApi(
         cfg=cfg,
         init=lambda gen, device=None, dtype=torch.float32: mod.init(
             cfg, gen, device=device, dtype=dtype),
+        forward=lambda env, params, batch: mod.forward(env, cfg, params,
+                                                       batch),
         prefill=lambda env, params, batch, max_len=None: mod.prefill(
             env, cfg, params, batch, max_len),
         decode_step=lambda env, params, cache, batch: mod.decode_step(

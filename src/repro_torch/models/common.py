@@ -1,18 +1,20 @@
 """Shared model plumbing: the execution environment and the initializers.
 
 Models are plain functions over nested dicts of tensors.  ``Env`` carries
-where and in what precision they run; which attention runs is decided by the
-tensors' device (the CUDA kernel on the card, its plain version on the CPU),
-so there is no kernel switch.
+where and in what precision they run, and whether the training forward
+recomputes each layer in its backward; which attention runs is decided by
+the tensors' device (the CUDA kernel on the card, its plain version on the
+CPU), so there is no kernel switch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Sequence, Union
+from typing import Any, Callable, Dict, Sequence, Union
 
 import torch
+import torch.utils.checkpoint
 
 Params = Dict[str, Any]
 DeviceLike = Union[str, torch.device, None]
@@ -35,11 +37,25 @@ class Env:
 
     device: torch.device
     compute_dtype: torch.dtype = torch.bfloat16
+    #: activation checkpointing of each layer body in the training forward,
+    #: with the reference's default policy "nothing": the backward recomputes
+    #: the whole body from its input
+    remat: bool = True
 
 
 def default_env(device: DeviceLike = None,
                 compute_dtype: torch.dtype = torch.bfloat16) -> Env:
     return Env(resolve_device(device), compute_dtype)
+
+
+def layer_call(env: Env, body: Callable, *args):
+    """``body(*args)``, checkpointed when ``env.remat``: only the layer's
+    inputs are kept for the backward, which runs the body once more (the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    if env.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(body, *args,
+                                                 use_reentrant=False)
+    return body(*args)
 
 
 # ---------------------------------------------------------------------------

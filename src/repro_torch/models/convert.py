@@ -28,6 +28,17 @@ _GELU_LINEAR = ("w1", "w2")
 _GELU_BIAS = ("b1", "b2")
 _SSM_LINEAR = ("in_proj", "out_proj")
 _SSM_AS_IS = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm")
+#: the 2-D leaves the port keeps in the reference's layout
+_MATRICES_AS_IS = ("embed", "pos_embed", "conv_w")
+
+
+def reference_last_axis(path: str, leaf: torch.Tensor) -> int:
+    """The axis of the port's ``leaf`` (at ``path``, its keys joined by
+    ``/``) that is the last axis of the reference's: 0 for a projection
+    stored transposed as (out, in), -1 for every leaf kept as it is (the
+    embedding, the position table, conv weights, expert stacks, vectors)."""
+    name = path.rsplit("/", 1)[-1]
+    return 0 if leaf.ndim == 2 and name not in _MATRICES_AS_IS else -1
 
 
 def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig, *,
@@ -42,6 +53,7 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig, *,
     ``pos_embed``, ``enc_blocks`` and ``dec_blocks`` stacked, ``enc_norm``,
     ``dec_norm``.  Returns the port's params on ``device`` in ``dtype``."""
     def t(a: np.ndarray) -> torch.Tensor:
+        # through fp32, which holds bf16 and int8 values exactly
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)
 

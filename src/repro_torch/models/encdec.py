@@ -10,16 +10,17 @@ tokens (the flash kernel on a prompt) and across to the encoder's output
 (plain tensor code, as the reference runs it outside Pallas).  The logits
 use the tied ``embed``.
 
-Entry points as ``transformer.py``'s: ``init``, ``prefill`` (batch:
-``tokens`` and ``frames``), ``decode_step``, ``init_cache``.  The cache
+Entry points as ``transformer.py``'s: ``init``, ``forward`` (training:
+teacher-forced over ``tokens`` with ``frames``, each layer checkpointed
+when ``env.remat``), ``prefill`` (batch: ``tokens`` and ``frames``),
+``decode_step``, ``init_cache``.  The cache
 holds the decoder's self-attention ``k``/``v`` (L, B, max_len, K, hd) and
 the cross-attention ``cross_k``/``cross_v`` (L, B, encoder_seq, K, hd) that
 prefill computes once from the encoder.  Params: ``embed``, ``pos_embed``,
 ``enc_blocks`` and ``dec_blocks`` (lists, one dict per layer: ``ln1``,
 ``attn`` or ``self_attn``/``ln_x``/``cross_attn``, ``ln2``,
 ``mlp.{w1,b1,w2,b2}``; LayerNorms ``{scale, bias}``), ``enc_norm``,
-``dec_norm``.  The training ``forward`` waits for ROADMAP.md Queue 1,
-item 8.
+``dec_norm``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .common import Env, embed_init, resolve_device
+from .common import Env, embed_init, layer_call, resolve_device
 from .layers import (_linear, attention_block, embed, gelu_mlp,
                      init_attention, init_gelu_mlp, layer_norm, lm_head)
 
@@ -103,19 +104,30 @@ def _positions(B: int, S: int, device: torch.device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
-@torch.no_grad()
-def encode(env: Env, cfg: ModelConfig, params: Params,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames: stubbed (B, S_enc, D) embeddings -> encoder states."""
+def _encode(env: Env, cfg: ModelConfig, params: Params,
+            frames: torch.Tensor) -> torch.Tensor:
+    """The encoder, differentiable; each layer checkpointed when
+    ``env.remat`` and grad is on.  Its attention is non-causal and stays
+    plain tensor code, as the reference's."""
     x = frames.to(env.compute_dtype)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    for bp in params["enc_blocks"]:
+
+    def body(x, bp):
         h = _ln(x, bp["ln1"], cfg.norm_eps)
         a, _ = _attend(env, cfg, bp["attn"], h, positions, causal=False)
         x = x + a
         h = _ln(x, bp["ln2"], cfg.norm_eps)
-        x = x + gelu_mlp(env, bp["mlp"], h)
+        return x + gelu_mlp(env, bp["mlp"], h)
+    for bp in params["enc_blocks"]:
+        x = layer_call(env, body, x, bp)
     return _ln(x, params["enc_norm"], cfg.norm_eps)
+
+
+@torch.no_grad()
+def encode(env: Env, cfg: ModelConfig, params: Params,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames: stubbed (B, S_enc, D) embeddings -> encoder states."""
+    return _encode(env, cfg, params, frames)
 
 
 def _cross_kv(env: Env, cfg: ModelConfig, dec_blocks: List[Params],
@@ -164,6 +176,26 @@ def _logits(env: Env, cfg: ModelConfig, params: Params,
             x: torch.Tensor) -> torch.Tensor:
     return lm_head(env, params["embed"],
                    _ln(x, params["dec_norm"], cfg.norm_eps))
+
+
+def forward(env: Env, cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced training forward over ``tokens`` with encoder
+    ``frames``; returns (logits (B, S, V), a zero fp32 aux loss)."""
+    enc_out = _encode(env, cfg, params, batch["frames"])
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = _positions(B, S, tokens.device)
+    x = _embed_tokens(env, params, tokens, positions)
+    cross_k, cross_v = _cross_kv(env, cfg, params["dec_blocks"], enc_out)
+
+    def body(x, bp, ck, cv):
+        return _dec_block(env, cfg, bp, x, positions, cross=(ck, cv))[0]
+    for i, bp in enumerate(params["dec_blocks"]):
+        x = layer_call(env, body, x, bp, cross_k[i], cross_v[i])
+    return (_logits(env, cfg, params, x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,

@@ -10,6 +10,7 @@
 Entry points:
 
 * ``init(cfg, gen, *, device, dtype)``            -> params
+* ``forward(env, cfg, params, batch)``            -> (logits, aux)  [train]
 * ``prefill(env, cfg, params, batch, max_len)``   -> (logits, cache)
 * ``decode_step(env, cfg, params, cache, batch)`` -> (logits, cache)
 * ``init_cache(cfg, batch, max_len, env, dtype)`` -> cache
@@ -20,7 +21,8 @@ moe: ``moe.{router,wg,wu,wd[,shared]}`` in place of ``mlp``; ssm and
 hybrid: ``ln1``, ``ssm.{in_proj,conv_w,conv_b,A_log,D,dt_bias,norm,
 out_proj}``), the hybrid's ``shared`` attention+MLP block, ``final_norm``
 and, untied, ``head`` (V, D); projections in (out, in) layout.  The layer
-stack is a Python loop.  The audio family is ``models/encdec.py``'s.
+stack is a Python loop; the training ``forward`` checkpoints each layer body
+when ``env.remat``.  The audio family is ``models/encdec.py``'s.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .common import Env, dense_init, embed_init, resolve_device
+from .common import Env, dense_init, embed_init, layer_call, resolve_device
 from .layers import (attention_block, embed, init_attention, init_swiglu,
                      lm_head, rms_norm, swiglu)
 from .moe import init_moe, moe_ffn
@@ -109,8 +111,7 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
     """Pre-norm attention + FFN: a dense, vlm or moe layer, or zamba2's
     weight-shared block (the reference's ``_shared_block``).  Returns
     (x, aux, new_kv): ``aux`` is the MoE layer's load-balance loss (None
-    for a SwiGLU block), which serving drops and training's ``forward``
-    (ROADMAP.md Queue 1, item 8) averages."""
+    for a SwiGLU block), which serving drops and ``forward`` averages."""
     h = rms_norm(x, bp["ln1"], cfg.norm_eps)
     a, new_kv = attention_block(
         env, bp["attn"], h, num_heads=cfg.num_heads,
@@ -133,6 +134,67 @@ def _logits(env: Env, cfg: ModelConfig, params: Params,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["head"]
     return lm_head(env, table, x)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train) — full sequence, no cache
+# ---------------------------------------------------------------------------
+
+def _embed_prompt(env: Env, cfg: ModelConfig, params: Params,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embeddings; vlm's ``patch_embeds`` (B, npatch, D) replace the
+    first npatch of them."""
+    x = embed(env, params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
+
+
+def forward(env: Env, cfg: ModelConfig, params: Params,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), aux): ``aux`` is the mean of the MoE
+    layers' load-balance losses, a zero fp32 scalar for the other
+    families.  Differentiable; each layer body is checkpointed when
+    ``env.remat``."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed_prompt(env, cfg, params, batch)
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.family in _SSM_FAMILIES:
+        x = _ssm_stack_forward(env, cfg, params, x, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        def body(x, bp):
+            x, aux, _ = _attn_ffn_block(env, cfg, bp, x, positions)
+            return x, aux
+        auxs = []
+        for bp in params["blocks"]:
+            x, aux = layer_call(env, body, x, bp)
+            auxs.append(aux)
+        aux = (torch.stack(auxs).mean() if cfg.family == "moe" else
+               torch.zeros((), dtype=torch.float32, device=x.device))
+    return _logits(env, cfg, params, x), aux
+
+
+def _ssm_stack_forward(env: Env, cfg: ModelConfig, params: Params,
+                       x: torch.Tensor, positions: torch.Tensor
+                       ) -> torch.Tensor:
+    """Mamba2 layers, each followed by the hybrid's shared block where it
+    applies; a layer and its shared block are one checkpointed body."""
+    def body(x, bp, idx):
+        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        s, _ = ssm_block(env, bp["ssm"], h, cfg)
+        x = x + s
+        if _shared_applies(cfg, idx):
+            x, _, _ = _attn_ffn_block(env, cfg, params["shared"], x,
+                                      positions)
+        return x
+    for idx, bp in enumerate(params["blocks"]):
+        x = layer_call(env, body, x, bp, idx)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -185,10 +247,7 @@ def prefill(env: Env, cfg: ModelConfig, params: Params,
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
-    x = embed(env, params["embed"], tokens)
-    if cfg.family == "vlm" and "patch_embeds" in batch:
-        pe = batch["patch_embeds"].to(x.dtype)
-        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    x = _embed_prompt(env, cfg, params, batch)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     cache = init_cache(cfg, B, max_len, env, dtype=x.dtype)
     if cfg.family in _SSM_FAMILIES:

@@ -21,6 +21,8 @@ from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Env, get_model, params_from_jax
+from repro_torch.train import AdamState, TrainState
+from repro_torch.train.tree import tree_leaves_with_path
 from repro_torch.serve import ServeEngine
 
 TOL = 1e-4
@@ -135,3 +137,77 @@ def serve_both(p: Pair, *, max_batch: int = 3, max_len: int = 24,
     assert sorted(out["port"]) == list(range(len(BUDGETS)))
     assert [len(out["port"][i]) for i in range(len(BUDGETS))] == BUDGETS
     return out["ref"], out["port"]
+
+
+# ---------------------------------------------------------------------------
+# Training (tests/test_torch_train_*.py)
+# ---------------------------------------------------------------------------
+
+#: one reduced config of each family; the hybrid's shared block runs after
+#: layers 2 and 4 of 4 (``attn_period`` 2)
+FAMILIES = {"dense": "minicpm-2b", "moe": "moonshot-v1-16b-a3b",
+            "vlm": "phi-3-vision-4.2b", "ssm": "mamba2-370m",
+            "hybrid": "zamba2-1.2b", "audio": "whisper-large-v3"}
+OPT = dict(lr=1e-3, warmup=0, total_steps=10)
+
+
+def train_batches(p, B=4, S=16, seed=0):
+    """The same training batch for both packages: tokens, next-token
+    labels, and the family's seeded stand-in inputs."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, p.tcfg.vocab_size, (B, S)).astype(np.int32)
+    jb, tb = batches(p.tcfg, tok, rng)
+    labels = np.roll(tok, -1, axis=1)
+    jb["labels"] = jnp.asarray(labels)
+    tb["labels"] = torch.from_numpy(labels).long()
+    return jb, tb
+
+
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int8": torch.int8}
+
+
+def train_state_from_jax(np_state, cfg: ModelConfig, *,
+                         device: torch.device = CPU) -> TrainState:
+    """The reference's ``TrainState`` (its leaves as numpy arrays) as the
+    port's: ``params``, AdamW's ``mu`` and ``nu`` (and, quantized,
+    ``nu_scale``) through ``params_from_jax``'s transposition, each in its
+    own dtype, and ``step``.  The int8 codes and per-block scales of a
+    quantized ``nu`` carry across as they are, since the port blocks each
+    leaf along the reference's last axis
+    (``repro_torch.models.convert.reference_last_axis``)."""
+    def tree(np_tree):
+        if np_tree is None:
+            return None
+        return params_from_jax(np_tree, cfg, device=device,
+                               dtype=_TORCH_DTYPES[str(np_tree["embed"].dtype)])
+    opt = np_state.opt
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=device)
+    return TrainState(
+        params=tree(np_state.params),
+        opt=AdamState(step, tree(opt.mu), tree(opt.nu), tree(opt.nu_scale)))
+
+#: the absolute floor of a leaf whose gradient is zero but for rounding
+FLOOR = 1e-8
+
+
+def compare_trees(got, want_np, cfg, dtype=torch.float32, tol=1e-4,
+                  atol=0.0, loose=(), loose_atol=0.0):
+    """A port tree against the reference's (numpy leaves) carried into the
+    port's layout, leaf by leaf: ``tol`` relative, and ``tol`` absolute at
+    the scale of the leaf's largest element where that is under 1, plus
+    ``atol`` (``loose_atol`` for the leaves named in ``loose``) and
+    :data:`FLOOR`."""
+    want = params_from_jax(want_np, cfg, device=CPU, dtype=dtype)
+    a, b = tree_leaves_with_path(got), tree_leaves_with_path(want)
+    assert [k for k, _ in a] == [k for k, _ in b]
+    for (k, x), (_, y) in zip(a, b):
+        assert x.shape == y.shape, k
+        scale = min(1.0, float(y.float().abs().max()))
+        extra = loose_atol if k in loose else atol
+        np.testing.assert_allclose(x.detach().float().numpy(),
+                                   y.float().numpy(), rtol=tol,
+                                   atol=tol * scale + extra + FLOOR,
+                                   err_msg=k)
