@@ -155,7 +155,24 @@ Phases, each of which exits non-zero on failure:
    and moments; MoE's routing decisions equal.  (e) A reduced minicpm
    (bf16, bf16 ``mu``) saved after step 2, restored into a freshly drawn
    state on the card bit-equal to what was saved, and its next two losses
-   against the uninterrupted run's.
+   against the uninterrupted run's;
+11. analysis: the static-analysis CLI (``python -m repro_torch.analysis``)
+   run in process through its ``main``.  ``prove --simulate`` at the CLI's
+   defaults (12 slots, 300 t/s: what the reference's CI runs) and at 120
+   slots / 3000 t/s, each with the launch count set to 0 just before and
+   read just after (exactly one sweep launch: the planned fleet's
+   co-simulation): the exit code and every ``prove:`` line equal the same
+   call with ``--device cpu``, the reference's decided cells (27 of 27,
+   21 of 27) and 0 RATE309 mismatches; the recorded kernel call against
+   its plain version on the same card tensors (1e-13 abs + rel), the
+   co-simulation's raw fields against ``engine="numpy"`` (1e-10) and its
+   stable verdicts equal; the one launch's device ms beside its bound,
+   the plain version's and numpy's times.  ``--verify-smoke`` exits 0
+   clean; ``lint src/``, ``flow src/`` and ``flow src/ tests/ benchmarks/
+   --sarif`` exit 0 with no findings (lint + flow over src/ under the
+   reference CI's 30 s budget); ``flow tests/fixtures/flow/`` exits 1 with
+   the codes the reference's tests expect of its three fixtures.  Each
+   command's wall ms and one ``{"analysis": ...}`` line are printed.
 
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
@@ -167,6 +184,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import pathlib
@@ -2634,6 +2652,163 @@ def train_phase(dev: torch.device, ours: set) -> dict:
     return launches
 
 
+# phase 11: the analysis CLI.  prove --simulate at the CLI's defaults (the
+# reference's CI, ci.yml:53) and at 120 slots / 3000 t/s, with the cells the
+# reference's run decides at each
+PROVE_RUNS = (("12 slots, 300 t/s", (), "27/27"),
+              ("120 slots, 3000 t/s",
+               ("--budget-slots", "120", "--max-rate", "3000"), "21/27"))
+#: the reference CI's wall budget for lint + flow over src/ (ci.yml:64-75)
+CI_BUDGET_MS = 30e3
+#: the codes tests/test_flow.py expects of each flow fixture
+FLOW_FIXTURES = {"abba_deadlock.py": ["RACE210"],
+                 "lock_across_join.py": ["RACE211"],
+                 "hand_over_hand.py": []}
+
+
+def run_cli(main_fn, argv) -> tuple:
+    """(exit code, standard output, wall ms) of one in-process call of a
+    CLI's ``main``; its standard error passes through."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = main_fn(list(argv))
+    return code, out.getvalue(), (time.perf_counter() - t0) * 1e3
+
+
+def prove_lines(out: str) -> list:
+    return [line for line in out.splitlines() if line.startswith("prove:")]
+
+
+def analysis_phase() -> int:
+    """Phase 11; returns the sweep launches of its ``prove --simulate``
+    runs."""
+    import repro_torch.core as core
+    from repro_torch.analysis.__main__ import main as cli
+    from repro_torch.core import online as online_mod
+    from repro_torch.kernels.sweep_scan import kernel as sweep_kernel
+    from repro_torch.kernels.sweep_scan.ref import (n_samples_of,
+                                                    sweep_scan_reference)
+
+    proves, launches_total = [], 0
+    for label, extra, decided in PROVE_RUNS:
+        argv = ["prove", "--simulate", *extra]
+        # the main path: the CLI's co-simulation on the card, counted
+        with recorded_calls(online_mod, "simulate_fleet") as sims, \
+                recorded_calls(core.SweepBatch, "sweep_raw") as raws, \
+                recorded_calls(sweep_kernel, "sweep_scan_fwd") as calls:
+            sweep_kernel.reset_launch_count()
+            code, out, wall_ms = run_cli(cli, argv)
+            launches = sweep_kernel.launch_count()
+        launches_total += launches
+        if launches != 1 or len(calls) != 1 or len(sims) != 1:
+            fail(f"prove --simulate [{label}]: {launches} sweep launches, "
+                 "expected 1")
+        cpu_code, cpu_out, cpu_wall_ms = run_cli(
+            cli, argv + ["--device", "cpu"])
+        (sim_args, sim_kw, rep), (args, kw, kern) = sims[0], calls[0]
+        with recorded_calls(core.SweepBatch, "sweep_raw") as host_raws:
+            t0 = time.perf_counter()
+            rep_n = core.simulate_fleet(*sim_args,
+                                        **{**sim_kw, "engine": "numpy"})
+            numpy_ms = (time.perf_counter() - t0) * 1e3
+        raw, host = raws[0][2], host_raws[0][2]
+        err_numpy = max(max_err(getattr(raw, f), getattr(host, f))
+                        for f in RAW_FIELDS)
+        verdicts = {n: [r.stable for r in e.results]
+                    for n, e in rep.entries.items()}
+        ok_numpy = verdicts == {n: [r.stable for r in e.results]
+                                for n, e in rep_n.entries.items()} and all(
+            close_fields(getattr(raw, f), getattr(host, f), SWEEP_TOL)
+            for f in RAW_FIELDS)
+        err_plain, ok_plain, plain_ms = against_plain(
+            sweep_scan_reference, args, kw, kern, PLAIN_TOL)
+        dev_ms, dev_source = sweep_device_ms(
+            lambda: sweep_kernel.sweep_scan_fwd(*args, **kw), iters=5)
+        flops, nbytes, _ = sweep_work(
+            args[6], args[0].cpu().numpy(), args[5].cpu().numpy(),
+            kw["steps"], kw["s0"], n_samples_of(kw["steps"],
+                                                kw["sample_every"]))
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_FP64)
+        lines = prove_lines(out)
+        same_lines = lines == prove_lines(cpu_out) and code == cpu_code
+        clean = (code == 0 and f"prove: {decided} cells decided" in out
+                 and "cross-check — 0 mismatch(es) over 27 cells" in out)
+        ok = same_lines and clean and ok_numpy and ok_plain
+        proves.append({
+            "setting": label, "exit": code, "lines": lines,
+            "launches": launches, "K": int(args[0].shape[2]),
+            "steps": kw["steps"], "cli_wall_ms": wall_ms,
+            "cli_cpu_wall_ms": cpu_wall_ms, "kernel_device_ms": dev_ms,
+            "kernel_ms_source": dev_source, "plain_event_ms": plain_ms,
+            "numpy_wall_ms": numpy_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err_vs_numpy": err_numpy,
+            "max_abs_err_vs_plain": err_plain,
+            "lines_equal_cpu": same_lines, **launch_report(sweep_kernel,
+                                                           args, kw)})
+        print(f"analysis prove --simulate [{label}]: exit {code}, "
+              f"{lines[-2][len('prove: '):]}; {lines[-1][len('prove: '):]}; "
+              f"{launches} sweep launch (K={proves[-1]['K']}, "
+              f"{kw['steps']} ticks); lines and exit equal --device cpu: "
+              f"{same_lines}; CLI wall ms {wall_ms:.3f} (cpu "
+              f"{cpu_wall_ms:.3f}); kernel ms {dev_ms:.6f} ({dev_source}; "
+              f"bound {bound_ms:.6f}, {bound_by}), plain event ms "
+              f"{plain_ms:.3f}, numpy co-simulation wall ms {numpy_ms:.3f}; "
+              f"kernel vs numpy max_abs_err {err_numpy:.3g} (tol "
+              f"{SWEEP_TOL:g}), verdicts equal {ok_numpy}; vs plain on the "
+              f"card {err_plain:.3g} (tol {PLAIN_TOL:g} abs + rel) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"prove --simulate [{label}] on the card disagrees")
+
+    commands = {}
+    code, out, commands["verify_smoke"] = run_cli(cli, ["--verify-smoke"])
+    if code != 0 or out.strip() != "verify-smoke: clean":
+        fail(f"--verify-smoke: exit {code}: {out.strip()[-400:]}")
+    src = str(HERE / "src")
+    for name, argv in (("lint_src", ["lint", src]),
+                       ("flow_src", ["flow", src])):
+        code, out, commands[name] = run_cli(cli, argv)
+        if code != 0 or out.strip() != f"{argv[0]}: clean":
+            fail(f"{argv[0]} src/: exit {code}: {out.strip()[-400:]}")
+    sarif = HERE / "build" / "analysis" / "flow.sarif"
+    sarif.parent.mkdir(parents=True, exist_ok=True)
+    code, out, commands["flow_src_tests_benchmarks"] = run_cli(
+        cli, ["flow", src, str(HERE / "tests"), str(HERE / "benchmarks"),
+              "--sarif", str(sarif)])
+    doc = json.loads(sarif.read_text())
+    run = doc["runs"][0]
+    if (code != 0 or out.strip() != "flow: clean" or run["results"]
+            or run["tool"]["driver"]["name"] != "repro_torch.analysis"):
+        fail(f"flow src/ tests/ benchmarks/: exit {code}: "
+             f"{out.strip()[-400:]}")
+    fixtures = HERE / "tests" / "fixtures" / "flow"
+    code, out, commands["flow_fixtures"] = run_cli(
+        cli, ["flow", str(fixtures), "--json"])
+    found = {name: [] for name in FLOW_FIXTURES}
+    for f in json.loads(out)["findings"]:
+        found.setdefault(pathlib.Path(f["artifact"]).name, []).append(
+            f["code"])
+    if code != 1 or found != FLOW_FIXTURES:
+        fail(f"flow tests/fixtures/flow/: exit {code}, codes {found}")
+    budget_ms = commands["lint_src"] + commands["flow_src"]
+    within = budget_ms < CI_BUDGET_MS
+    print(f"analysis CLI: --verify-smoke clean; lint src/ clean, flow src/ "
+          f"clean, flow src/ tests/ benchmarks/ --sarif clean (SARIF "
+          f"{doc['version']}, 0 results); flow tests/fixtures/flow/ exit "
+          f"{code}, codes {found}; wall ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in commands.items())
+          + f"; lint + flow over src/ {budget_ms:.3f} ms (budget "
+          f"{CI_BUDGET_MS:.0f}) {'ok' if within else 'OVER'}", flush=True)
+    if not within:
+        fail(f"lint + flow over src/ took {budget_ms:.0f} ms")
+    print(json.dumps({"analysis": {
+        "prove_simulate": proves, "wall_ms": commands,
+        "lint_flow_src_ms": budget_ms, "fixture_codes": found}}),
+        flush=True)
+    return launches_total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2895,6 +3070,11 @@ def main() -> int:
     trained = train_phase(dev, port_kernels)
     for name in ("flash", "ssd"):
         launches[name]["train"] = trained[name]
+
+    # 11. analysis: the static-analysis CLI, prove --simulate on the kernel --
+    prove_launches = analysis_phase()
+    sweep_entry["launches"] += prove_launches
+    sweep_entry["launches_by_path"]["analysis_prove"] = prove_launches
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",

@@ -39,8 +39,7 @@ Planners use proved cells to skip co-simulation
 numpy.
 
 A copy of the JAX package's ``analysis/prove.py``; nothing but the module
-references differs (the reference's ``python -m repro.analysis prove``
-command line is not carried over).
+references differs.  ``python -m repro_torch.analysis prove`` runs it.
 """
 
 from __future__ import annotations

@@ -36,7 +36,8 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_importing_the_launcher_loads_neither_jax_nor_repro():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.serve;"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.serve, "
+            "repro_torch.analysis.__main__;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -48,11 +49,13 @@ def test_importing_the_launcher_loads_neither_jax_nor_repro():
 
 def test_entry_points_without_a_device_refuse_the_cpu(monkeypatch):
     """Without a card the entry points raise rather than run on the CPU:
-    the serving path's, and the streaming runtime's ``StreamExecutor``,
+    the serving path's, the streaming runtime's ``StreamExecutor``,
     ``LiveFleet`` and ``SyntheticSource`` (which would otherwise run their
-    operators' plain versions)."""
+    operators' plain versions), and the analysis CLI's ``prove --simulate``
+    (the sweep's); the CLI's ``lint`` touches no device and still runs."""
     import repro_torch.core as core
     import repro_torch.runtime as rt
+    from repro_torch.analysis.__main__ import main as analysis_main
 
     lib = core.paper_library()
     sched = core.plan(core.diamond_dag(), 80.0, lib, allocator="mba",
@@ -73,3 +76,7 @@ def test_entry_points_without_a_device_refuse_the_cpu(monkeypatch):
     assert {str(d) for d in ex.slot_device.values()} == {"cpu"}
     assert rt.LiveFleet(core.FleetController(lib, budget_slots=12),
                         device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        analysis_main(["prove", "--simulate"])
+    assert analysis_main(["prove", "--simulate", "--device", "cpu"]) == 0
+    assert analysis_main(["lint", str(REPO / "src" / "repro_torch")]) == 0
