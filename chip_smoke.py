@@ -174,6 +174,28 @@ Phases, each of which exits non-zero on failure:
    the codes the reference's tests expect of its three fixtures.  Each
    command's wall ms and one ``{"analysis": ...}`` line are printed.
 
+12. sharded: serving sharded over R = ``torch.cuda.device_count()``
+   rank processes, one card each over NCCL, started by the launcher's
+   spawn helper (``repro_torch.distributed.spawn``) and run through its
+   rank entry; each rank draws only its shard of the weights.  Every job
+   holds each rank's flash and SSD launches exact (counts set to 0 just
+   before its serving run, read just after), every rank's greedy tokens
+   equal, its peak memory under 80 GB and a dense model's collectives
+   (prefill, decode step, whole run) equal to the analytic count.  On one
+   card: minicpm-2b at full width and depth at tp 1 (an NCCL group of
+   one), its tokens equal to phase 5's and its prefill logits within bf16
+   tolerance.  On four: minicpm-2b at tp 4 (9 heads a rank), its fp32
+   tokens equal to the one-device model's; qwen2-72b at all 80 layers (16
+   query and 2 KV heads a rank); moonshot-v1-16b-a3b expert-parallel (16
+   experts a rank), every rank's routing and drops equal to rank 0's
+   recomputation from each layer's input; mamba2-370m (8 SSD heads a
+   rank); a 4-stage gpipe against the layers in sequence.  It prints the
+   ranks and the jobs it ran and did not run, one ``{"sharded": ...}``
+   line a job (tokens/s, prefill and decode ms, collectives and their
+   bytes per prefill and decode step, each rank's peak memory).  Phase 3
+   also holds flash at one rank's heads of minicpm, qwen2-72b and
+   moonshot at tp 4, and SSD at one rank's 8 mamba2 heads.
+
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.  Without CUDA the script exits 2 at once.
 """
@@ -2009,8 +2031,11 @@ def stream_phase(dev: torch.device) -> tuple:
     return entries, result["auto_recal"]["sweep_launches"]
 
 
-def serve_phase(dev: torch.device, port_kernels: set) -> dict:
-    """Phases 4 and 5; returns each kernel's launches by served model."""
+def serve_phase(dev: torch.device, port_kernels: set,
+                phase5: dict) -> dict:
+    """Phases 4 and 5; returns each kernel's launches by served model and
+    keeps minicpm-2b's greedy tokens and first prompt's logits in
+    ``phase5``."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.roofline import H100_SXM
     from repro_torch.kernels.flash_attention import kernel
@@ -2094,11 +2119,15 @@ def serve_phase(dev: torch.device, port_kernels: set) -> dict:
                               device=dev)},
             {"prefill": res["prefill_ms_p50"],
              "decode": res["decode_ms_p50"]}, port_kernels)
-        logits, _ = eng.api.prefill(eng.env, eng.params, batch)
+        logits, _ = eng.api.prefill(eng.env, eng.params, batch,
+                                    max_len=eng.max_len)
         if logits.shape != (1, 1, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()):
             fail(f"{arch}: full-size prefill logits are not finite of shape "
                  "(1, 1, V)")
+        if arch == "minicpm-2b":        # what phase 12 holds tp 1 against
+            phase5.update(outputs={r.rid: list(r.output) for r in done},
+                          logits=logits[0, -1].float().cpu())
         del eng, res, logits, done, prompt, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2809,6 +2838,390 @@ def analysis_phase() -> int:
     return launches_total
 
 
+# phase 12: sharded serving over R = torch.cuda.device_count() ranks, one
+# card each (NCCL), started by the launcher's spawn helper and run through
+# its rank entry (repro_torch.launch.serve.sharded_model/serve_workload).
+# Every job serves REQUESTS prompts of PROMPT_LEN, NEW_TOKENS each, at full
+# width; the counts are set to 0 in each rank just before its serving run
+# and read just after.  On one card: minicpm-2b at full depth at tp 1
+# against phase 5's one-device run.  On four: minicpm-2b at tp 4 (and its
+# greedy tokens in fp32 against the one-device model's, 2 prompts of 256,
+# 16 new tokens), qwen2-72b at all 80 layers (phase 5 holds 40 on one
+# card), moonshot-v1-16b-a3b expert-parallel (its routing and drops against
+# rank 0's recomputation from the layers' inputs), mamba2-370m (8 of its 32
+# SSD heads a rank) and a 4-stage gpipe.  Other counts run minicpm-2b only.
+SHARD_JOBS = {1: ("minicpm-2b",),
+              4: ("minicpm-2b", "minicpm-2b fp32", "qwen2-72b",
+                  "moonshot-v1-16b-a3b", "mamba2-370m", "gpipe")}
+SHARD_FP32 = dict(requests=2, prompt_len=256, max_new=16, max_batch=2,
+                  seed=SEED)
+GPIPE = dict(layers=8, width=4096, microbatches=8, rows=64)
+
+
+def predicted_collectives(cfg, tp: int, B: int, S: int, nbytes: int) -> dict:
+    """The collectives one dense prefill (B, S) or decode step (S = 1)
+    issues at tp: the vocab-parallel embedding's all-reduce (where the
+    vocab divides), one after each layer's attention and one after its
+    MLP (where heads and hidden divide), and the head's all-gather of the
+    last position's logits."""
+    vocab = cfg.vocab_size % tp == 0
+    per_layer = (cfg.num_heads % tp == 0) + (cfg.d_ff % tp == 0)
+    n_ar = int(vocab) + cfg.num_layers * per_layer
+    act = B * S * cfg.d_model * nbytes
+    out = {"counts": {}, "raw_bytes": {}, "wire_bytes": {}}
+    if n_ar:
+        out["counts"]["all-reduce"] = n_ar
+        out["raw_bytes"]["all-reduce"] = n_ar * act
+        out["wire_bytes"]["all-reduce"] = n_ar * act * 2 * (tp - 1) / tp
+    if vocab:
+        logits = B * cfg.vocab_size * nbytes
+        out["counts"]["all-gather"] = 1
+        out["raw_bytes"]["all-gather"] = logits
+        out["wire_bytes"]["all-gather"] = logits * (tp - 1) / tp
+    return out
+
+
+def shard_serve(rank: int, tp: int, arch: str, dtype: torch.dtype,
+                opts: dict, routes: bool) -> dict:
+    """One serving job inside rank ``rank``: the launcher's rank entry at
+    full width and depth, kernel launches counted around the serving run,
+    collectives recorded over it and over one more prefill and decode
+    step; for MoE, every rank's routing in that prefill and rank 0's
+    recomputation of every rank's from the layers' inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.serve import sharded_model, serve_workload
+    from repro_torch.models import moe as moe_module, transformer
+
+    cfg = get_config(arch)
+    env, api, params = sharded_model(rank, tp, cfg, "cuda", opts["seed"],
+                                     dtype)
+    torch.cuda.synchronize()
+    kernel.reset_launch_count()
+    ssd_kernel.reset_launch_count()
+    with recording() as stats:
+        res = serve_workload(env, api, params, **opts)
+    counts = {"flash": kernel.launch_count(), "ssd": ssd_kernel.launch_count()}
+    eng = res.pop("engine")
+    batch = eng.prefill_batch(res["done"][0].prompt)
+    steps, profiles = {}, {}
+    with contextlib.ExitStack() as stack:
+        calls = stack.enter_context(recorded_calls(moe_module,
+                                                   "_dispatch_local"))
+        inputs = stack.enter_context(recorded_calls(transformer, "moe_ffn"))
+        with recording() as steps["prefill"], rank_profile(
+                rank, profiles, "prefill"):
+            logits, _ = api.prefill(env, params, batch, max_len=eng.max_len)
+    with recording() as steps["decode"], rank_profile(rank, profiles,
+                                                      "decode"):
+        api.decode_step(env, params, eng.cache, {
+            "tokens": batch["tokens"][:, :1].expand(eng.max_batch, 1),
+            "pos": torch.full((eng.max_batch,), res["done"][0].prompt.size,
+                              device=env.device)})
+    torch.cuda.synchronize()
+    out = {k: v for k, v in res.items() if k != "done"}
+    out.update(
+        outputs={r.rid: list(r.output) for r in res["done"]},
+        first_rid=res["done"][0].rid, launches=counts,
+        logits=logits[0, -1].float().cpu(),
+        finite=bool(torch.isfinite(logits).all()),
+        collectives=stats.as_dict(),
+        step_collectives={k: v.as_dict() for k, v in steps.items()},
+        profiles=profiles,
+        layers=cfg.num_layers, d_model=cfg.d_model, family=cfg.family)
+    if routes and cfg.family == "moe":
+        out["routes"] = [(a[1].cpu(), o[2].cpu()) for a, _, o in calls]
+        if rank == 0:
+            out["recomputed"] = moe_recompute(cfg, tp, inputs)
+    del eng, params, res, logits, calls, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def rank_profile(rank: int, out: dict, name: str):
+    """On rank 0, trace the block with torch.profiler: its device kernels,
+    their summed ms, the NCCL kernels' part, and the block's host ms (a
+    synchronisation at its end); other ranks run the block untraced."""
+    if rank != 0:
+        yield
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    nccl = sum(e.time_range.elapsed_us() for e in kernels
+               if "nccl" in e.name.lower()) / 1e3
+    out[name] = {"device_kernels": len(kernels), "device_busy_ms": busy,
+                 "nccl_ms": nccl, "traced_wall_ms": wall,
+                 "busy_share": busy / wall if wall else None}
+
+
+def moe_recompute(cfg, tp: int, inputs) -> list:
+    """Per layer, every rank's routing recomputed without collectives from
+    the layer's input (the whole sequence, which every rank holds) and the
+    router: rank r's block of the sequence, top-k, capacity from its own
+    token count, the dispatch's ``valid``."""
+    import math
+    from repro_torch.models import moe as moe_module
+    out = []
+    for (env, p, x), kw, _ in inputs:
+        B, S, D = x.shape
+        s_l, k = S // tp, kw["experts_per_token"]
+        per_rank = []
+        for r in range(tp):
+            xf = x[:, r * s_l:(r + 1) * s_l].reshape(-1, D)
+            _, _, top_ids = moe_module._route(xf, p["router"], k)
+            ids = top_ids.reshape(-1)
+            cap = max(int(math.ceil(xf.shape[0] * k * kw["capacity_factor"]
+                                    / kw["num_experts"])), 1)
+            _, _, valid = moe_module._dispatch_local(xf, ids, cap,
+                                                     kw["num_experts"], k)
+            per_rank.append((ids.cpu(), valid.cpu()))
+        out.append(per_rank)
+    return out
+
+
+def shard_gpipe(rank: int, tp: int) -> dict:
+    """A GPIPE-sized 4-stage pipeline of tanh(x @ W) layers in fp32, each
+    rank holding its stage, against the layers run in sequence on rank 0."""
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.pipeline import gpipe, split_stages
+    dev = torch.device("cuda", rank)
+    L, d, n_mb, rows = (GPIPE[k] for k in ("layers", "width",
+                                           "microbatches", "rows"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ws = torch.randn((L, d, d), generator=gen, device=dev) * d ** -0.5
+    x = torch.randn((n_mb, rows, d), generator=gen, device=dev)
+    mesh = Mesh.attach((tp,), ("pipe",), "cuda")
+    mine = split_stages(ws, tp)[rank:rank + 1]
+
+    def layer_fn(stage, c):
+        for w in stage:
+            c = torch.tanh(c @ w)
+        return c
+    f = gpipe(layer_fn, mesh, pipe_axis="pipe", n_microbatches=n_mb)
+    f(mine, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording() as stats:
+        y = f(mine, x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = x
+    for w in ws:
+        ref = torch.tanh(ref @ w)
+    return {"err": float((y - ref).abs().max()), "ms": ms,
+            "stats": stats.as_dict(), "stages": tp, "microbatches": n_mb}
+
+
+def shard_rank(rank: int, tp: int, jobs: tuple) -> dict:
+    """Rank ``rank`` of phase 12: each job in turn, in one NCCL world."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    out = {}
+    for job in jobs:
+        if job == "gpipe":
+            out[job] = shard_gpipe(rank, tp)
+        elif job.endswith(" fp32"):
+            arch = job.split()[0]
+            out[job] = shard_serve(rank, tp, arch, torch.float32,
+                                   SHARD_FP32, False)
+            if rank == 0:      # the one-device model: tp 1's computation
+                out[job]["one_device"] = one_device_outputs(arch)
+        else:
+            out[job] = shard_serve(rank, tp, job, torch.bfloat16, dict(
+                requests=REQUESTS, prompt_len=PROMPT_LEN, max_new=NEW_TOKENS,
+                max_batch=MAX_BATCH, seed=SEED), True)
+        torch.distributed.barrier()
+    return out
+
+
+def one_device_outputs(arch: str) -> dict:
+    """Greedy tokens of the fp32 job on the one-device model (no mesh) on
+    card 0, the same weights drawn whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_workload
+    from repro_torch.models import get_model
+    from repro_torch.models.common import Env
+    env = Env(torch.device("cuda", 0), torch.float32)
+    api = get_model(get_config(arch))
+    params = api.init(torch.Generator(device=env.device).manual_seed(SEED),
+                      device=env.device, dtype=torch.float32)
+    res = serve_workload(env, api, params, **SHARD_FP32)
+    outs = {r.rid: list(r.output) for r in res["done"]}
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return outs
+
+
+def sharded_phase(phase5: dict) -> dict:
+    """Phase 12; returns each kernel's launches (all ranks) by job."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.spawn import spawn
+    R = torch.cuda.device_count()
+    jobs = SHARD_JOBS.get(R, SHARD_JOBS[1])
+    skipped = sorted(set(SHARD_JOBS[4]) - set(jobs))
+    print(f"sharded serving: ranks {R} (NCCL, one card a rank); runs "
+          f"{', '.join(jobs)}"
+          + (f"; not run for want of 4 cards: {', '.join(skipped)}"
+             if skipped else ""), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(shard_rank, R, args=(R, jobs), device="cuda", timeout=900)
+    print(f"sharded serving: {R} ranks ran in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {"flash": {}, "ssd": {}}
+    for job in jobs:
+        per = [r[job] for r in ranks]
+        if job == "gpipe":
+            g = per[0]
+            ok = all(p["err"] <= 1e-4 for p in per) and all(
+                p["stats"]["counts"] == {"collective-permute": n_mb + R - 1,
+                                         "all-reduce": 1}
+                for p, n_mb in ((p, p["microbatches"]) for p in per))
+            print(f"sharded gpipe [{R} stages, {GPIPE['layers']} layers of "
+                  f"tanh(x @ W), W {GPIPE['width']}^2, {GPIPE['microbatches']}"
+                  f" microbatches of {GPIPE['rows']} rows, fp32]: max_abs_err "
+                  f"vs sequential {max(p['err'] for p in per):.3g} (tol 1e-4),"
+                  f" {g['ms']:.3f} ms, collectives {g['stats']['counts']} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail("gpipe over the ranks disagrees with the layers in "
+                     "sequence")
+            continue
+        shard_check(job, per, R, phase5, launches)
+    return launches
+
+
+def shard_check(job: str, per: list, R: int, phase5: dict,
+                launches: dict) -> None:
+    from repro_torch.configs import get_config
+    r0 = per[0]
+    arch = job.split()[0]
+    cfg = get_config(arch)
+    family = r0["family"]
+    n_flash = (0 if family == "ssm" else cfg.num_layers // cfg.attn_period
+               if family == "hybrid" else cfg.num_layers)
+    n_ssd = cfg.num_layers if family in ("ssm", "hybrid") else 0
+    requests = r0["requests"]
+    expected = {"flash": n_flash * requests, "ssd": n_ssd * requests}
+    for p in per:
+        if p["launches"] != expected:
+            fail(f"{job}: a rank launched {p['launches']}, expected "
+                 f"{expected}")
+    if not all(p["finite"] for p in per):
+        fail(f"{job}: prefill logits are not finite")
+    if any(o != r0["outputs"] for o in (p["outputs"] for p in per)):
+        fail(f"{job}: the ranks' greedy tokens differ")
+    if any(len(t) != (NEW_TOKENS if not job.endswith("fp32") else
+                      SHARD_FP32["max_new"]) for t in r0["outputs"].values()):
+        fail(f"{job}: not every request finished with its tokens")
+    if not all(p["peak_mem_bytes"] < CARD_BYTES for p in per):
+        fail(f"{job}: a rank's peak memory is not under {CARD_BYTES:.0f}")
+    if not job.endswith("fp32"):
+        for name in ("flash", "ssd"):
+            launches[name][f"{arch} tp{R}"] = sum(p["launches"][name]
+                                                  for p in per)
+    note = {}
+    if family == "dense" and not job.endswith("fp32"):
+        want = {"prefill": predicted_collectives(cfg, R, 1, PROMPT_LEN, 2),
+                "decode": predicted_collectives(cfg, R, MAX_BATCH, 1, 2)}
+        for step, w in want.items():
+            got = r0["step_collectives"][step]
+            if got["counts"] != w["counts"] or \
+                    got["raw_bytes"] != w["raw_bytes"] or any(
+                        abs(got["wire_bytes"][k] - v) > 1e-6
+                        for k, v in w["wire_bytes"].items()):
+                fail(f"{job}: {step} collectives {got} != predicted {w}")
+        run = r0["collectives"]["counts"]
+        want_run = {k: r0["prefills"] * want["prefill"]["counts"].get(k, 0)
+                    + r0["decode_steps"] * want["decode"]["counts"].get(k, 0)
+                    for k in set(want["prefill"]["counts"])
+                    | set(want["decode"]["counts"])}
+        if run != want_run:
+            fail(f"{job}: the run's collectives {run} != predicted "
+                 f"{want_run}")
+        note["collectives_predicted"] = True
+    if job == "minicpm-2b" and R == 1:
+        same = r0["outputs"] == phase5["outputs"]
+        err = float((r0["logits"] - phase5["logits"]).abs().max())
+        tol = TOLS[torch.bfloat16] * (1 + float(phase5["logits"].abs().max()))
+        print(f"sharded [{job} tp 1] vs phase 5's one-device run: greedy "
+              f"tokens of {len(r0['outputs'])} requests equal: {same}; "
+              f"prefill logits max_abs_err {err:.3g} (tol {tol:.3g}) "
+              f"{'ok' if same and err <= tol else 'MISMATCH'}", flush=True)
+        if not same or err > tol:
+            fail("the sharded entry point at tp 1 disagrees with phase 5")
+    if job == "minicpm-2b" and R > 1:
+        agree = sum(a == b for rid in phase5["outputs"]
+                    for a, b in zip(phase5["outputs"][rid],
+                                    r0["outputs"][rid]))
+        note["bf16_tokens_equal_to_phase5"] = agree
+        print(f"sharded [{job} tp {R}] bf16 greedy tokens equal to phase 5's "
+              f"one-device run: {agree} of {REQUESTS * NEW_TOKENS} (bf16 "
+              "sums over ranks round differently; held in fp32 below)",
+              flush=True)
+    if job.endswith("fp32"):
+        same = r0["outputs"] == r0["one_device"]
+        print(f"sharded [{job} tp {R}] greedy tokens of "
+              f"{SHARD_FP32['requests']} requests (prompt "
+              f"{SHARD_FP32['prompt_len']}, {SHARD_FP32['max_new']} new) "
+              f"equal to the one-device model's (tp 1): {same} "
+              f"{'ok' if same else 'MISMATCH'}", flush=True)
+        if not same:
+            fail(f"{job}: tokens at tp {R} differ from one device's")
+    if "recomputed" in r0:
+        rec = r0["recomputed"]
+        same = all(torch.equal(ids, rec[layer][r][0]) and
+                   torch.equal(valid, rec[layer][r][1])
+                   for r, p in enumerate(per)
+                   for layer, (ids, valid) in enumerate(p["routes"])) and \
+            all(len(p["routes"]) == len(rec) for p in per)
+        drops = sum(int((~v).sum()) for p in per for _, v in p["routes"])
+        total = sum(v.numel() for p in per for _, v in p["routes"])
+        print(f"sharded [{job} tp {R}] routing: {len(rec)} MoE layers x {R} "
+              f"ranks, {total} assignments, {drops} dropped (capacity from "
+              f"each rank's {PROMPT_LEN // R} tokens); equal to rank 0's "
+              f"recomputation: {same} {'ok' if same else 'MISMATCH'}",
+              flush=True)
+        if not same:
+            fail(f"{job}: a rank's routing differs from the recomputation")
+        note["routing_equal"] = same
+        note["dropped"] = drops
+    pre, dec = r0["step_collectives"]["prefill"], \
+        r0["step_collectives"]["decode"]
+    print(json.dumps({"sharded": {
+        "job": job, "arch": arch, "family": family, "ranks": R,
+        "layers": r0["layers"], "d_model": r0["d_model"],
+        "dtype": "fp32" if job.endswith("fp32") else "bf16",
+        "requests": requests, "tokens": r0["tokens"],
+        "wall_s": r0["wall_s"], "tokens_per_s": r0["tokens_per_s"],
+        "ttft_p50_ms": r0["ttft_p50_ms"],
+        "prefill_ms_p50": r0["prefill_ms_p50"],
+        "decode_ms_p50": r0["decode_ms_p50"],
+        "peak_mem_bytes_by_rank": [p["peak_mem_bytes"] for p in per],
+        "launches_rank0": r0["launches"], "expected_launches": expected,
+        "prefill_collectives": pre, "decode_collectives": dec,
+        "profile_rank0": r0["profiles"],
+        "run_collectives": r0["collectives"]["counts"], **note}}),
+        flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2903,6 +3316,13 @@ def main() -> int:
          torch.bfloat16, 0),
         ("moonshot_mha", 1, PROMPT_LEN, PROMPT_LEN, 16, 16, 128,
          torch.bfloat16, 0),
+        # one rank's local heads at tp 4 (phase 12)
+        ("minicpm_tp4_rank", 1, PROMPT_LEN, PROMPT_LEN, 9, 9, 64,
+         torch.bfloat16, 0),
+        ("qwen2_72b_tp4_rank", 1, PROMPT_LEN, PROMPT_LEN, 16, 2, 128,
+         torch.bfloat16, 0),
+        ("moonshot_tp4_rank", 1, PROMPT_LEN, PROMPT_LEN, 4, 4, 128,
+         torch.bfloat16, 0),
     ]
     errors = {}
     for name, B, Sq, Skv, H, K, hd, dtype, off in cases:
@@ -2979,6 +3399,9 @@ def main() -> int:
     ssd_cases = [
         # name, Bt, S, H, P, N, chunk, dtype, init_state
         ("mamba2", 1, PROMPT_LEN, 32, 64, 128, 256, torch.bfloat16, False),
+        # one rank's 8 of mamba2-370m's 32 heads at tp 4 (phase 12)
+        ("mamba2_tp4_rank", 1, PROMPT_LEN, 8, 64, 128, 256, torch.bfloat16,
+         False),
         ("zamba2", 1, PROMPT_LEN, 64, 64, 64, 256, torch.bfloat16, False),
         ("padded_bf16", 2, 1000, 8, 64, 128, 256, torch.bfloat16, False),
         ("short_bf16", 2, 100, 8, 64, 128, 256, torch.bfloat16, False),
@@ -3041,7 +3464,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4-5. plan, and serve at full width ------------------------------------------
-    launches = serve_phase(dev, port_kernels)
+    phase5: dict = {}
+    launches = serve_phase(dev, port_kernels, phase5)
 
     # 6. agreement with the CPU at a small size ---------------------------------
     agreement_phase(dev)
@@ -3075,6 +3499,11 @@ def main() -> int:
     prove_launches = analysis_phase()
     sweep_entry["launches"] += prove_launches
     sweep_entry["launches_by_path"]["analysis_prove"] = prove_launches
+
+    # 12. sharded serving over every visible card -----------------------------
+    sharded = sharded_phase(phase5)
+    for name in ("flash", "ssd"):
+        launches[name]["sharded"] = sharded[name]
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",

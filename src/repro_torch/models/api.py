@@ -29,8 +29,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     mod = encdec if cfg.family == "audio" else transformer
     return ModelApi(
         cfg=cfg,
-        init=lambda gen, device=None, dtype=torch.float32: mod.init(
-            cfg, gen, device=device, dtype=dtype),
+        init=lambda gen, device=None, dtype=torch.float32, env=None:
+            mod.init(cfg, gen, device=device, dtype=dtype, env=env),
         forward=lambda env, params, batch: mod.forward(env, cfg, params,
                                                        batch),
         prefill=lambda env, params, batch, max_len=None: mod.prefill(

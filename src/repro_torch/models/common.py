@@ -1,20 +1,27 @@
 """Shared model plumbing: the execution environment and the initializers.
 
 Models are plain functions over nested dicts of tensors.  ``Env`` carries
-where and in what precision they run, and whether the training forward
-recomputes each layer in its backward; which attention runs is decided by
-the tensors' device (the CUDA kernel on the card, its plain version on the
-CPU), so there is no kernel switch.
+where and in what precision they run, whether the training forward
+recomputes each layer in its backward, and the distribution context: the
+mesh, the batch axes and the tensor/expert-parallel axis, as the
+reference's ``Env`` does.  Under a mesh each rank holds only its shard of
+the weights and caches (``distributed/sharding.py``) and the model code
+issues its collectives through ``distributed/collectives.py``.  Which
+attention runs is decided by the tensors' device (the CUDA kernel on the
+card, its plain version on the CPU), so there is no kernel switch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import Any, Callable, Dict, Sequence, Union
+import itertools
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
+
+from ..distributed.mesh import Mesh
+from ..distributed.sharding import Index
 
 Params = Dict[str, Any]
 DeviceLike = Union[str, torch.device, None]
@@ -41,6 +48,55 @@ class Env:
     #: with the reference's default policy "nothing": the backward recomputes
     #: the whole body from its input
     remat: bool = True
+    mesh: Optional[Mesh] = None
+    batch_axes: Tuple[str, ...] = ()     # e.g. ("pod", "data")
+    tp_axis: Optional[str] = None        # tensor/expert-parallel axis
+
+    @property
+    def dp(self) -> int:
+        if self.mesh is None or not self.batch_axes:
+            return 1
+        return self.mesh.axis_size(tuple(self.batch_axes))
+
+    @property
+    def tp(self) -> int:
+        if self.mesh is None or self.tp_axis is None:
+            return 1
+        return self.mesh.shape[self.tp_axis]
+
+    def tp_entry_if_divisible(self, dim: int):
+        """tp axis entry only when it divides ``dim`` (e.g. GQA kv heads
+        smaller than the tp width must replicate, not flip-flop shard)."""
+        if self.tp_axis is None or self.mesh is None:
+            return None
+        return self.tp_axis if dim % self.tp == 0 else None
+
+    def tp_shards(self, dim: int) -> bool:
+        """Whether a dimension of full size ``dim`` (heads, hidden, vocab,
+        experts) is split over the tp axis: under a mesh with one, exactly
+        when it divides, a width of 1 included (its collectives then run
+        on a group of one)."""
+        return self.tp_entry_if_divisible(dim) is not None
+
+    @property
+    def tp_rank(self) -> int:
+        return 0 if self.tp_axis is None or self.mesh is None else \
+            self.mesh.coords[self.tp_axis]
+
+    @property
+    def tp_group(self):
+        return self.mesh.group(self.tp_axis)
+
+
+def check_unsharded_training(env: Env) -> None:
+    """The training forward is not sharded yet (ROADMAP.md Queue 1, item
+    9): the port's collectives carry no gradient, so a forward under a
+    mesh with grad on is refused rather than differentiated wrongly."""
+    if env.mesh is not None and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "training under a mesh is not ported yet (ROADMAP.md Queue 1, "
+            "item 9); run the forward under torch.no_grad() or without a "
+            "mesh")
 
 
 def default_env(device: DeviceLike = None,
@@ -62,43 +118,144 @@ def layer_call(env: Env, body: Callable, *args):
 # Initializers (explicit generator; weights in nn.Linear's (out, in) layout).
 # ---------------------------------------------------------------------------
 
-#: the most elements drawn in fp32 at once (1 GiB): a larger tensor, such as
-#: kimi-k2's (384, 7168, 2048) expert stack, is drawn slice by slice along
-#: its first axis and cast slice by slice, so that initialising it never
-#: holds the whole tensor in fp32
-DRAW_LIMIT = 1 << 28
+#: the tile a tensor is drawn in: a matrix in tiles of at most TILE x TILE,
+#: a stack of three or more axes (experts) one slice of its first axis at a
+#: time, a vector whole.  Each tile draws from a generator of its own,
+#: seeded from the leaf's seed (one draw of the caller's generator per
+#: leaf) and the tile's number, so the tiles of a rank's shard are drawn
+#: without the rest, and equal the same tiles of the whole tensor; a draw
+#: never holds more than a tile in fp32
+TILE = 2048
 
 
-def _draw(shape: Sequence[int], draw, *, device: torch.device,
-          dtype: torch.dtype) -> torch.Tensor:
-    """``draw(t)`` fills an fp32 tensor in place; ``shape`` is filled from
-    fp32 draws of at most :data:`DRAW_LIMIT` elements, cast to ``dtype``.
-    A tensor within the limit is one draw, as ``draw`` on the whole."""
+def _tile_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    if len(shape) <= 1:
+        return shape
+    if len(shape) == 2:
+        return (min(TILE, shape[0]), min(TILE, shape[1]))
+    return (1,) + shape[1:]
+
+
+def _tile_seed(seed: int, tile: int) -> int:
+    return (seed + 0x9E3779B97F4A7C15 * (tile + 1)) % (1 << 63)
+
+
+#: a leaf's index (``distributed/sharding.py`` ``local_index``) given its
+#: full shape
+Where = Callable[[Tuple[int, ...]], Index]
+
+
+def _local_shape(shape: Tuple[int, ...], index: Index) -> Tuple[int, ...]:
+    return tuple(n if ix is None else len(ix) for n, ix in zip(shape, index))
+
+
+def _draw(gen: torch.Generator, shape: Sequence[int],
+          fill: Callable[[torch.Tensor, torch.Generator], torch.Tensor], *,
+          device: torch.device, dtype: torch.dtype,
+          where: Optional[Where] = None) -> torch.Tensor:
+    """``fill(t, g)`` fills an fp32 tile ``t`` from generator ``g``; the
+    leaf of full ``shape`` is drawn tile by tile (:data:`TILE`) and cast to
+    ``dtype``, keeping only the part ``where`` selects."""
     shape = tuple(shape)
-    out = torch.empty(shape, dtype=dtype, device=device)
-    rows = max(1, DRAW_LIMIT // max(1, math.prod(shape[1:])))
-    for start in range(0, shape[0], rows):
-        t = torch.empty((min(rows, shape[0] - start),) + shape[1:],
-                        dtype=torch.float32, device=device)
-        out[start:start + t.shape[0]] = draw(t)
+    index = where(shape) if where is not None else (None,) * len(shape)
+    seed = int(torch.randint(1 << 62, (1,), generator=gen,
+                             device=gen.device).item())
+    out = torch.empty(_local_shape(shape, index), dtype=dtype, device=device)
+    if out.device.type == "meta":          # shapes only (a dry run)
+        return out
+    sub = torch.Generator(device=device)
+    tile = _tile_shape(shape)
+    starts = [range(0, n, t) for n, t in zip(shape, tile)]
+    for number, corner in enumerate(itertools.product(*starts)):
+        src, dst, extent = [], [], []
+        for s0, n, t, ix in zip(corner, shape, tile, index):
+            end = min(s0 + t, n)
+            extent.append(end - s0)
+            if ix is None:
+                src.append(None)
+                dst.append(slice(s0, end))
+                continue
+            inside = ((ix >= s0) & (ix < end)).nonzero().flatten()
+            if len(inside) == 0:
+                break
+            src.append(ix[inside] - s0)
+            # kept indices ascend, so a tile's land in one run
+            dst.append(slice(int(inside[0]), int(inside[-1]) + 1))
+        else:
+            sub.manual_seed(_tile_seed(seed, number))
+            t = fill(torch.empty(extent, dtype=torch.float32, device=device),
+                     sub)
+            for dim, ix in enumerate(src):
+                if ix is not None:
+                    t = t.index_select(dim, ix.to(device))
+            out[tuple(dst)] = t.to(dtype)
     return out
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], *,
                device: torch.device, dtype: torch.dtype = torch.float32,
-               in_axis: int = -1) -> torch.Tensor:
+               in_axis: int = -1, where: Optional[Where] = None
+               ) -> torch.Tensor:
     """Truncated-normal fan-in init (1/sqrt(fan_in)), as the reference's
     ``dense_init``; drawn in fp32, then cast."""
     scale = shape[in_axis] ** -0.5
 
-    def draw(t: torch.Tensor) -> torch.Tensor:
-        torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
+    def fill(t: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+        torch.nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=g)
         return t * scale
-    return _draw(shape, draw, device=device, dtype=dtype)
+    return _draw(gen, shape, fill, device=device, dtype=dtype, where=where)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], *,
-               device: torch.device,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return _draw(shape, lambda t: t.normal_(generator=gen) * 0.02,
-                 device=device, dtype=dtype)
+               device: torch.device, dtype: torch.dtype = torch.float32,
+               where: Optional[Where] = None) -> torch.Tensor:
+    return _draw(gen, shape, lambda t, g: t.normal_(generator=g) * 0.02,
+                 device=device, dtype=dtype, where=where)
+
+
+def const(value: torch.Tensor, *, device: torch.device, dtype: torch.dtype,
+          where: Optional[Where] = None) -> torch.Tensor:
+    """A leaf computed whole (zeros, ones, a ``linspace``), cut to the part
+    ``where`` selects."""
+    if where is not None:
+        for dim, ix in enumerate(where(tuple(value.shape))):
+            if ix is not None:
+                value = value.index_select(dim, ix.to(value.device))
+    return value.to(device=device, dtype=dtype)
+
+
+def zeros(shape: Sequence[int], *, device: torch.device,
+          dtype: torch.dtype = torch.float32,
+          where: Optional[Where] = None) -> torch.Tensor:
+    shape = tuple(shape)
+    index = where(shape) if where is not None else (None,) * len(shape)
+    return torch.zeros(_local_shape(shape, index), device=device, dtype=dtype)
+
+
+def ones(shape: Sequence[int], *, device: torch.device,
+         dtype: torch.dtype = torch.float32,
+         where: Optional[Where] = None) -> torch.Tensor:
+    shape = tuple(shape)
+    index = where(shape) if where is not None else (None,) * len(shape)
+    return torch.ones(_local_shape(shape, index), device=device, dtype=dtype)
+
+
+def leaf(kw: Dict[str, Any], name: str) -> Dict[str, Any]:
+    """The keywords of an initializer for the leaf ``name`` under ``kw``:
+    ``kw`` holds ``device`` and ``dtype`` and, when a rank draws only its
+    shard, ``shard`` (``shard(path, shape)`` -> the leaf's index) and
+    ``prefix``, the path of the dict being drawn."""
+    out = {"device": kw["device"], "dtype": kw["dtype"]}
+    shard = kw.get("shard")
+    if shard is not None:
+        path = f"{kw['prefix']}/{name}" if kw.get("prefix") else name
+        out["where"] = lambda shape: shard(path, shape)
+    return out
+
+
+def under(kw: Dict[str, Any], name: str) -> Dict[str, Any]:
+    """``kw`` for the dict ``name`` inside the one ``kw`` draws."""
+    if kw.get("shard") is None:
+        return kw
+    return {**kw, "prefix": f"{kw['prefix']}/{name}" if kw.get("prefix")
+            else name}

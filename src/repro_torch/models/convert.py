@@ -8,16 +8,22 @@ are.  MoE experts stay in the reference's (E, in, out) layout, the one
 ``models/moe.py``'s ``torch.bmm`` reads without a copy; their router and
 shared SwiGLU are transposed like any projection.  Biases, norm gains,
 LayerNorm ``scale``/``bias`` and the learned ``pos_embed`` are as they are.
+
+Under a mesh, :func:`params_from_jax` returns one rank's shard: each leaf
+is cut in numpy to the rank's ``distributed/sharding.py`` ``local_index``
+before it is converted, so a rank never holds another rank's part.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.mesh import Mesh
+from ..distributed.sharding import local_index, take, transposed
 
 Params = Dict[str, Any]
 
@@ -28,8 +34,6 @@ _GELU_LINEAR = ("w1", "w2")
 _GELU_BIAS = ("b1", "b2")
 _SSM_LINEAR = ("in_proj", "out_proj")
 _SSM_AS_IS = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm")
-#: the 2-D leaves the port keeps in the reference's layout
-_MATRICES_AS_IS = ("embed", "pos_embed", "conv_w")
 
 
 def reference_last_axis(path: str, leaf: torch.Tensor) -> int:
@@ -37,12 +41,13 @@ def reference_last_axis(path: str, leaf: torch.Tensor) -> int:
     ``/``) that is the last axis of the reference's: 0 for a projection
     stored transposed as (out, in), -1 for every leaf kept as it is (the
     embedding, the position table, conv weights, expert stacks, vectors)."""
-    name = path.rsplit("/", 1)[-1]
-    return 0 if leaf.ndim == 2 and name not in _MATRICES_AS_IS else -1
+    return 0 if transposed(path, leaf.ndim) else -1
 
 
 def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig, *,
-                    device: torch.device, dtype: torch.dtype) -> Params:
+                    device: torch.device, dtype: torch.dtype,
+                    mesh: Optional[Mesh] = None,
+                    coords: Optional[Dict[str, int]] = None) -> Params:
     """``np_params``: the reference's tree as numpy arrays.  The decoder's:
     ``embed`` (V, D), ``blocks`` stacked on a leading L axis (dense, vlm:
     ``{ln1, ln2, attn.{wq,wk,wv,wo[,bq,bk,bv]}, mlp.{wg,wu,wd}}``; moe:
@@ -51,14 +56,36 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig, *,
     unstacked ``shared`` block, ``final_norm`` (D,) and, untied, ``head``
     (D, V).  The encoder-decoder's (``cfg.family == "audio"``): ``embed``,
     ``pos_embed``, ``enc_blocks`` and ``dec_blocks`` stacked, ``enc_norm``,
-    ``dec_norm``.  Returns the port's params on ``device`` in ``dtype``."""
-    def t(a: np.ndarray) -> torch.Tensor:
+    ``dec_norm``.  Returns the port's params on ``device`` in ``dtype``:
+    under ``mesh``, the shard of the rank at ``coords`` (default: the
+    mesh's own rank)."""
+    def t(a: np.ndarray) -> np.ndarray:
+        return np.asarray(a)
+
+    def linear(a: np.ndarray) -> np.ndarray:
+        return np.swapaxes(a, -1, -2)           # (in, out) -> (out, in)
+
+    def place(path: str, a: np.ndarray) -> torch.Tensor:
+        a = take(a, local_index(cfg, mesh, path, a.shape, coords))
         # through fp32, which holds bf16 and int8 values exactly
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)
 
-    def linear(a: np.ndarray) -> torch.Tensor:
-        return t(np.swapaxes(a, -1, -2))        # (in, out) -> (out, in)
+    def walk(tree, prefix: str):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
+        return place(prefix, tree)
+
+    return walk(_port_tree(np_params, cfg, t, linear), "")
+
+
+def _port_tree(np_params: Mapping[str, Any], cfg: ModelConfig, t,
+               linear) -> Params:
+    """The reference's tree in the port's structure and layout (numpy
+    views, not yet converted)."""
 
     Pick = Callable[[np.ndarray], np.ndarray]
 

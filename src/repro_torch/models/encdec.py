@@ -21,6 +21,11 @@ prefill computes once from the encoder.  Params: ``embed``, ``pos_embed``,
 ``attn`` or ``self_attn``/``ln_x``/``cross_attn``, ``ln2``,
 ``mlp.{w1,b1,w2,b2}``; LayerNorms ``{scale, bias}``), ``enc_norm``,
 ``dec_norm``.
+
+Under a mesh the entry points work on this rank's shard as
+``transformer.py``'s do: attention on local heads (the cross-attention's
+K/V are the rank's KV heads), the GELU MLPs column- then row-parallel, the
+tied vocabulary split over tp where it divides.
 """
 
 from __future__ import annotations
@@ -30,9 +35,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .common import Env, embed_init, layer_call, resolve_device
+from ..distributed.sharding import local_batch
+from .common import (Env, check_unsharded_training, embed_init, layer_call,
+                     leaf, ones, resolve_device, under, zeros)
 from .layers import (_linear, attention_block, embed, gelu_mlp,
                      init_attention, init_gelu_mlp, layer_norm, lm_head)
+from .transformer import local_zeros, shard_kw
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -42,7 +50,8 @@ POS_ROWS = 4096
 
 
 def _init_ln(d: int, kw: Dict[str, Any]) -> Params:
-    return {"scale": torch.ones(d, **kw), "bias": torch.zeros(d, **kw)}
+    return {"scale": ones((d,), **leaf(kw, "scale")),
+            "bias": zeros((d,), **leaf(kw, "bias"))}
 
 
 def _init_attention(cfg: ModelConfig, gen: torch.Generator,
@@ -53,38 +62,42 @@ def _init_attention(cfg: ModelConfig, gen: torch.Generator,
 
 def _init_enc_layer(cfg: ModelConfig, gen: torch.Generator,
                     kw: Dict[str, Any]) -> Params:
-    return {"ln1": _init_ln(cfg.d_model, kw),
-            "attn": _init_attention(cfg, gen, kw),
-            "ln2": _init_ln(cfg.d_model, kw),
-            "mlp": init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, kw)}
+    return {"ln1": _init_ln(cfg.d_model, under(kw, "ln1")),
+            "attn": _init_attention(cfg, gen, under(kw, "attn")),
+            "ln2": _init_ln(cfg.d_model, under(kw, "ln2")),
+            "mlp": init_gelu_mlp(gen, cfg.d_model, cfg.d_ff,
+                                 under(kw, "mlp"))}
 
 
 def _init_dec_layer(cfg: ModelConfig, gen: torch.Generator,
                     kw: Dict[str, Any]) -> Params:
-    return {"ln1": _init_ln(cfg.d_model, kw),
-            "self_attn": _init_attention(cfg, gen, kw),
-            "ln_x": _init_ln(cfg.d_model, kw),
-            "cross_attn": _init_attention(cfg, gen, kw),
-            "ln2": _init_ln(cfg.d_model, kw),
-            "mlp": init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, kw)}
+    return {"ln1": _init_ln(cfg.d_model, under(kw, "ln1")),
+            "self_attn": _init_attention(cfg, gen, under(kw, "self_attn")),
+            "ln_x": _init_ln(cfg.d_model, under(kw, "ln_x")),
+            "cross_attn": _init_attention(cfg, gen, under(kw, "cross_attn")),
+            "ln2": _init_ln(cfg.d_model, under(kw, "ln2")),
+            "mlp": init_gelu_mlp(gen, cfg.d_model, cfg.d_ff,
+                                 under(kw, "mlp"))}
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, *,
          device: Optional[torch.device] = None,
-         dtype: torch.dtype = torch.float32) -> Params:
+         dtype: torch.dtype = torch.float32,
+         env: Optional[Env] = None) -> Params:
     """Random weights from ``gen`` with the reference's distributions
-    (LayerNorm scales 1, biases 0)."""
-    kw = dict(device=resolve_device(device), dtype=dtype)
+    (LayerNorm scales 1, biases 0); under ``env``'s mesh only this rank's
+    shard of each leaf."""
+    kw = shard_kw(cfg, env, resolve_device(device), dtype)
     D = cfg.d_model
     return {
-        "embed": embed_init(gen, (cfg.vocab_size, D), **kw),
-        "pos_embed": embed_init(gen, (POS_ROWS, D), **kw),
-        "enc_blocks": [_init_enc_layer(cfg, gen, kw)
-                       for _ in range(cfg.encoder_layers)],
-        "enc_norm": _init_ln(D, kw),
-        "dec_blocks": [_init_dec_layer(cfg, gen, kw)
-                       for _ in range(cfg.num_layers)],
-        "dec_norm": _init_ln(D, kw),
+        "embed": embed_init(gen, (cfg.vocab_size, D), **leaf(kw, "embed")),
+        "pos_embed": embed_init(gen, (POS_ROWS, D), **leaf(kw, "pos_embed")),
+        "enc_blocks": [_init_enc_layer(cfg, gen, under(kw, f"enc_blocks/{i}"))
+                       for i in range(cfg.encoder_layers)],
+        "enc_norm": _init_ln(D, under(kw, "enc_norm")),
+        "dec_blocks": [_init_dec_layer(cfg, gen, under(kw, f"dec_blocks/{i}"))
+                       for i in range(cfg.num_layers)],
+        "dec_norm": _init_ln(D, under(kw, "dec_norm")),
     }
 
 
@@ -117,7 +130,7 @@ def _encode(env: Env, cfg: ModelConfig, params: Params,
         a, _ = _attend(env, cfg, bp["attn"], h, positions, causal=False)
         x = x + a
         h = _ln(x, bp["ln2"], cfg.norm_eps)
-        return x + gelu_mlp(env, bp["mlp"], h)
+        return x + gelu_mlp(env, bp["mlp"], h, cfg.d_ff)
     for bp in params["enc_blocks"]:
         x = layer_call(env, body, x, bp)
     return _ln(x, params["enc_norm"], cfg.norm_eps)
@@ -135,10 +148,10 @@ def _cross_kv(env: Env, cfg: ModelConfig, dec_blocks: List[Params],
     """Each decoder layer's cross-attention K/V of the encoder output,
     stacked: (L, B, S_enc, K, hd) x2."""
     B, S, _ = enc_out.shape
-    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
     ks, vs = [], []
     for bp in dec_blocks:
         ca = bp["cross_attn"]
+        shape = (B, S, ca["wk"].shape[0] // cfg.head_dim, cfg.head_dim)
         ks.append(_linear(enc_out, ca["wk"], ca["bk"]).reshape(shape))
         vs.append(_linear(enc_out, ca["wv"], ca["bv"]).reshape(shape))
     return torch.stack(ks), torch.stack(vs)
@@ -156,7 +169,7 @@ def _dec_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
     a, _ = _attend(env, cfg, bp["cross_attn"], h, positions, cross_kv=cross)
     x = x + a
     h = _ln(x, bp["ln2"], cfg.norm_eps)
-    return x + gelu_mlp(env, bp["mlp"], h), new_kv
+    return x + gelu_mlp(env, bp["mlp"], h, cfg.d_ff), new_kv
 
 
 def _positions_embed(params: Params, pos: torch.Tensor) -> torch.Tensor:
@@ -166,16 +179,16 @@ def _positions_embed(params: Params, pos: torch.Tensor) -> torch.Tensor:
     return table[pos.clamp(max=table.shape[0] - 1)]
 
 
-def _embed_tokens(env: Env, params: Params, tokens: torch.Tensor,
-                  pos: torch.Tensor) -> torch.Tensor:
-    x = embed(env, params["embed"], tokens)
+def _embed_tokens(env: Env, cfg: ModelConfig, params: Params,
+                  tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    x = embed(env, params["embed"], tokens, cfg.vocab_size)
     return x + _positions_embed(params, pos).to(x.dtype)
 
 
 def _logits(env: Env, cfg: ModelConfig, params: Params,
             x: torch.Tensor) -> torch.Tensor:
     return lm_head(env, params["embed"],
-                   _ln(x, params["dec_norm"], cfg.norm_eps))
+                   _ln(x, params["dec_norm"], cfg.norm_eps), cfg.vocab_size)
 
 
 def forward(env: Env, cfg: ModelConfig, params: Params,
@@ -183,11 +196,12 @@ def forward(env: Env, cfg: ModelConfig, params: Params,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced training forward over ``tokens`` with encoder
     ``frames``; returns (logits (B, S, V), a zero fp32 aux loss)."""
+    check_unsharded_training(env)
     enc_out = _encode(env, cfg, params, batch["frames"])
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
-    x = _embed_tokens(env, params, tokens, positions)
+    x = _embed_tokens(env, cfg, params, tokens, positions)
     cross_k, cross_v = _cross_kv(env, cfg, params["dec_blocks"], enc_out)
 
     def body(x, bp, ck, cv):
@@ -200,12 +214,14 @@ def forward(env: Env, cfg: ModelConfig, params: Params,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
                dtype: torch.dtype = torch.bfloat16) -> Cache:
-    kw = dict(dtype=dtype, device=env.device)
+    """``batch`` is the global batch; under a mesh each entry is this
+    rank's part."""
     L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    return {"k": torch.zeros((L, batch, max_len, K, hd), **kw),
-            "v": torch.zeros((L, batch, max_len, K, hd), **kw),
-            "cross_k": torch.zeros((L, batch, cfg.encoder_seq, K, hd), **kw),
-            "cross_v": torch.zeros((L, batch, cfg.encoder_seq, K, hd), **kw)}
+    shapes = {"k": (L, batch, max_len, K, hd), "v": (L, batch, max_len, K, hd),
+              "cross_k": (L, batch, cfg.encoder_seq, K, hd),
+              "cross_v": (L, batch, cfg.encoder_seq, K, hd)}
+    return {name: local_zeros(cfg, env, name, shape, dtype)
+            for name, shape in shapes.items()}
 
 
 @torch.no_grad()
@@ -213,19 +229,23 @@ def prefill(env: Env, cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor],
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """Encode ``frames``, then a teacher-forced decoder pass over ``tokens``
-    that fills the self-attention cache; returns last-position logits."""
+    that fills the self-attention cache; returns last-position logits.
+    Under a mesh ``batch`` is global; the logits and cache are this
+    rank's."""
+    B_all, S = batch["tokens"].shape
+    max_len = max_len or S
+    batch = local_batch(env, batch)
     enc_out = encode(env, cfg, params, batch["frames"])
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    max_len = max_len or S
+    B = tokens.shape[0]
     positions = _positions(B, S, tokens.device)
-    x = _embed_tokens(env, params, tokens, positions)
+    x = _embed_tokens(env, cfg, params, tokens, positions)
     cross_k, cross_v = _cross_kv(env, cfg, params["dec_blocks"], enc_out)
     L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    kw = dict(dtype=x.dtype, device=x.device)
-    cache: Cache = {"k": torch.zeros((L, B, max_len, K, hd), **kw),
-                    "v": torch.zeros((L, B, max_len, K, hd), **kw),
-                    "cross_k": cross_k, "cross_v": cross_v}
+    cache: Cache = {
+        name: local_zeros(cfg, env, name, (L, B_all, max_len, K, hd), x.dtype)
+        for name in ("k", "v")}
+    cache.update(cross_k=cross_k, cross_v=cross_v)
     for i, bp in enumerate(params["dec_blocks"]):
         x, (k, v) = _dec_block(env, cfg, bp, x, positions,
                                cross=(cross_k[i], cross_v[i]))
@@ -241,11 +261,13 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
     """batch: tokens (B,1) int, pos (B,) int (next position to write).
 
     Returns (logits (B,1,V), cache); the self-attention cache is updated in
-    place, the cross-attention K/V are read."""
+    place, the cross-attention K/V are read.  Under a mesh ``batch`` is
+    global and ``cache`` and the logits this rank's."""
+    batch = local_batch(env, batch)
     tokens, pos = batch["tokens"], batch["pos"]
     positions = pos[:, None].long()
     kv_len = pos.long() + 1
-    x = _embed_tokens(env, params, tokens, positions)
+    x = _embed_tokens(env, cfg, params, tokens, positions)
     for i, bp in enumerate(params["dec_blocks"]):
         x, _ = _dec_block(env, cfg, bp, x, positions,
                           kv_cache=(cache["k"][i], cache["v"][i]),

@@ -7,6 +7,16 @@ Projection weights are in ``nn.Linear``'s (out, in) layout and applied with
 (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`); decode
 against a cache, non-causal (encoder) attention and cross-attention stay
 plain tensor code, as the reference runs them outside Pallas.
+
+Under a mesh with a tp axis (``env.tp_shards``) each rank holds its shard
+(``distributed/sharding.py``): attention keeps its block of query heads and
+the KV heads they read, and the flash kernel runs on those local heads;
+``wo`` is row-parallel, followed by one all-reduce.  The MLPs are
+column-parallel up and row-parallel down, with one all-reduce (whisper's
+``b2`` is added after it).  Where the vocab divides the width, the
+embedding is a masked lookup plus an all-reduce and the head's sharded
+logits are all-gathered for sampling; elsewhere both replicate.  Every
+collective goes through ``distributed/collectives.py``.
 """
 
 from __future__ import annotations
@@ -16,8 +26,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import all_gather, all_reduce
+from ..distributed.sharding import kv_heads, kv_map
 from ..kernels.flash_attention.ops import flash_attention
-from .common import Env, dense_init
+from .common import Env, dense_init, leaf, zeros
 
 Params = Dict[str, Any]
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -80,14 +92,14 @@ def init_attention(gen: torch.Generator, d_model: int, num_heads: int,
                    kw: Dict[str, Any]) -> Params:
     """``kw``: the ``device``/``dtype`` of every tensor."""
     H, K, hd = num_heads, num_kv_heads, head_dim
-    p: Params = {"wq": dense_init(gen, (H * hd, d_model), **kw),
-                 "wk": dense_init(gen, (K * hd, d_model), **kw),
-                 "wv": dense_init(gen, (K * hd, d_model), **kw),
-                 "wo": dense_init(gen, (d_model, H * hd), **kw)}
+    p: Params = {"wq": dense_init(gen, (H * hd, d_model), **leaf(kw, "wq")),
+                 "wk": dense_init(gen, (K * hd, d_model), **leaf(kw, "wk")),
+                 "wv": dense_init(gen, (K * hd, d_model), **leaf(kw, "wv")),
+                 "wo": dense_init(gen, (d_model, H * hd), **leaf(kw, "wo"))}
     if qkv_bias:
-        p["bq"] = torch.zeros(H * hd, **kw)
-        p["bk"] = torch.zeros(K * hd, **kw)
-        p["bv"] = torch.zeros(K * hd, **kw)
+        p["bq"] = zeros((H * hd,), **leaf(kw, "bq"))
+        p["bk"] = zeros((K * hd,), **leaf(kw, "bk"))
+        p["bv"] = zeros((K * hd,), **leaf(kw, "bv"))
     return p
 
 
@@ -159,17 +171,34 @@ def attention_block(env: Env, p: Params, x: torch.Tensor, *, num_heads: int,
     * cross-attention: ``cross_kv`` precomputed from the encoder (masked by
       ``kv_len`` if given); returns no cache.
     ``use_rope=False`` leaves q and k unrotated (whisper).
+    ``num_heads``/``num_kv_heads`` are the model's; under a tp mesh the
+    block runs its rank's local heads (the caches hold its KV heads).
     """
     B, Sq, _ = x.shape
     H, K, hd = num_heads, num_kv_heads, head_dim
+    shard = env.tp_shards(H)
+    kv_index = None
+    if shard:
+        _, K = kv_heads(H, K, env.tp, env.tp_rank, True)
+        kv_index = kv_map(H, num_kv_heads, env.tp, env.tp_rank, True)
+        H = H // env.tp
     q = _linear(x, p["wq"], p.get("bq")).reshape(B, Sq, H, hd)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
 
+    def attend(k, v, **kw):
+        if kv_index is not None:     # KV heads shared unevenly by the block
+            k = k.index_select(2, kv_index.to(k.device))
+            v = v.index_select(2, kv_index.to(v.device))
+        return _mha(env, q, k, v, **kw)
+
+    def project(out):
+        out = _linear(out.reshape(B, Sq, H * hd), p["wo"])
+        return all_reduce(out, env.tp_group) if shard else out
+
     if cross_kv is not None:
         k, v = cross_kv
-        out = _mha(env, q, k, v, causal=False, kv_len=kv_len)
-        return _linear(out.reshape(B, Sq, H * hd), p["wo"]), None
+        return project(attend(k, v, causal=False, kv_len=kv_len)), None
 
     k = _linear(x, p["wk"], p.get("bk")).reshape(B, Sq, K, hd)
     v = _linear(x, p["wv"], p.get("bv")).reshape(B, Sq, K, hd)
@@ -177,8 +206,8 @@ def attention_block(env: Env, p: Params, x: torch.Tensor, *, num_heads: int,
         k = apply_rope(k, positions, rope_theta)
 
     if kv_cache is None:
-        out = _mha(env, q, k, v, causal=causal,
-                   q_offset=positions[:, 0] if causal else None)
+        out = attend(k, v, causal=causal,
+                     q_offset=positions[:, 0] if causal else None)
         new_cache = (k, v)
     else:
         k_cache, v_cache = kv_cache
@@ -188,10 +217,9 @@ def attention_block(env: Env, p: Params, x: torch.Tensor, *, num_heads: int,
         k_cache[b_idx, pos] = k[:, 0].to(k_cache.dtype)
         v_cache[b_idx, pos] = v[:, 0].to(v_cache.dtype)
         lens = kv_len if kv_len is not None else pos + 1
-        out = _mha(env, q, k_cache, v_cache, causal=False, kv_len=lens)
+        out = attend(k_cache, v_cache, causal=False, kv_len=lens)
         new_cache = (k_cache, v_cache)
-    out = out.reshape(B, Sq, H * hd)
-    return _linear(out, p["wo"]), new_cache
+    return project(out), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -200,43 +228,78 @@ def attention_block(env: Env, p: Params, x: torch.Tensor, *, num_heads: int,
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
                 kw: Dict[str, Any]) -> Params:
-    return {"wg": dense_init(gen, (d_ff, d_model), **kw),
-            "wu": dense_init(gen, (d_ff, d_model), **kw),
-            "wd": dense_init(gen, (d_model, d_ff), **kw)}
+    return {"wg": dense_init(gen, (d_ff, d_model), **leaf(kw, "wg")),
+            "wu": dense_init(gen, (d_ff, d_model), **leaf(kw, "wu")),
+            "wd": dense_init(gen, (d_model, d_ff), **leaf(kw, "wd"))}
 
 
-def swiglu(env: Env, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _row_parallel(env: Env, d_ff: Optional[int]) -> bool:
+    """Whether an MLP of hidden width ``d_ff`` is split over tp (its down
+    projection then needs an all-reduce).  Under a mesh the caller must
+    say the width: a rank's shard alone cannot tell."""
+    if env.mesh is None:
+        return False
+    if d_ff is None:
+        raise ValueError("under a mesh an MLP needs its full hidden width")
+    return env.tp_shards(d_ff)
+
+
+def swiglu(env: Env, p: Params, x: torch.Tensor,
+           d_ff: Optional[int] = None) -> torch.Tensor:
+    """``d_ff``: the full hidden width (needed under a mesh)."""
     g = _linear(x, p["wg"])
     u = _linear(x, p["wu"])
     h = F.silu(g.float()).to(x.dtype) * u
-    return _linear(h, p["wd"])
+    out = _linear(h, p["wd"])
+    return all_reduce(out, env.tp_group) if _row_parallel(env, d_ff) else out
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
                   kw: Dict[str, Any]) -> Params:
-    return {"w1": dense_init(gen, (d_ff, d_model), **kw),
-            "b1": torch.zeros(d_ff, **kw),
-            "w2": dense_init(gen, (d_model, d_ff), **kw),
-            "b2": torch.zeros(d_model, **kw)}
+    return {"w1": dense_init(gen, (d_ff, d_model), **leaf(kw, "w1")),
+            "b1": zeros((d_ff,), **leaf(kw, "b1")),
+            "w2": dense_init(gen, (d_model, d_ff), **leaf(kw, "w2")),
+            "b2": zeros((d_model,), **leaf(kw, "b2"))}
 
 
-def gelu_mlp(env: Env, p: Params, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(env: Env, p: Params, x: torch.Tensor,
+             d_ff: Optional[int] = None) -> torch.Tensor:
     """fc1 -> GELU -> fc2 with biases (whisper); the GELU is the reference's
-    ``jax.nn.gelu``, whose default is the tanh approximation."""
+    ``jax.nn.gelu``, whose default is the tanh approximation.  ``d_ff``:
+    the full hidden width (needed under a mesh)."""
     h = _linear(x, p["w1"], p["b1"])
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return _linear(h, p["w2"], p["b2"])
+    if not _row_parallel(env, d_ff):
+        return _linear(h, p["w2"], p["b2"])
+    out = all_reduce(_linear(h, p["w2"]), env.tp_group)
+    return out + p["b2"].to(out.dtype)
 
 
 # ---------------------------------------------------------------------------
 # Embedding / LM head
 # ---------------------------------------------------------------------------
 
-def embed(env: Env, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens].to(env.compute_dtype)
+def embed(env: Env, table: torch.Tensor, tokens: torch.Tensor,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``.  ``vocab``: the full vocabulary;
+    where it splits over tp, this rank's (V/tp, D) block looks up the tokens
+    it holds, zeros the rest, and an all-reduce sums the ranks' rows."""
+    if vocab is None or not env.tp_shards(vocab):
+        return table[tokens].to(env.compute_dtype)
+    rows = table.shape[0]
+    local = tokens - env.tp_rank * rows
+    inside = (local >= 0) & (local < rows)
+    out = table[local.clamp(0, rows - 1)].to(env.compute_dtype)
+    out = torch.where(inside[..., None], out, torch.zeros_like(out))
+    return all_reduce(out, env.tp_group)
 
 
-def lm_head(env: Env, table_or_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def lm_head(env: Env, table_or_w: torch.Tensor, x: torch.Tensor,
+            vocab: Optional[int] = None) -> torch.Tensor:
     """Logits from a (V, D) matrix: the embedding table when embeddings are
-    tied, else the head converted to (out, in) layout."""
-    return _linear(x, table_or_w)
+    tied, else the head converted to (out, in) layout.  Where ``vocab``
+    splits over tp, each rank's (V/tp) logits are all-gathered."""
+    logits = _linear(x, table_or_w)
+    if vocab is None or not env.tp_shards(vocab):
+        return logits
+    return all_gather(logits, env.tp_group, dim=-1)

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN on one device (the reference's ``moe_ffn``
-without a mesh, ``repro/models/moe.py``).
+"""Expert-parallel Mixture-of-Experts FFN (the reference's ``moe_ffn``,
+``repro/models/moe.py``).
 
 Token-choice top-k routing with per-expert capacity and sort-based
 dispatch (no (N, E, C) one-hot tensor, which is quadratic in experts):
@@ -19,20 +19,34 @@ Weights: ``router`` (E, D) and the optional ``shared`` SwiGLU in the port's
 (out, in) layout; the experts' ``wg``/``wu`` (E, D, F) and ``wd`` (E, F, D)
 in the reference's (in, out) layout, which ``torch.bmm`` reads as it lies.
 
-The expert-parallel branches (experts sharded over a model axis, the two
-all-to-alls, the replicated-token decode) wait for ROADMAP.md Queue 1
-item 9.
+Under a mesh with a tp axis the experts split over it (E/tp a rank), as
+the reference's ``shard_map`` body runs them, with the collectives issued
+through ``distributed/collectives.py``:
+
+* token-parallel (the sequence divides over tp: prefill, a width of 1
+  included): each rank routes its own block of the sequence, with the
+  capacity from its *local* token count, as the reference does (so drops
+  differ from one device's), then an all-to-all sends each expert's rows
+  to its rank, the local experts run, an all-to-all brings them back, and
+  an all-gather over tp rebuilds the sequence;
+* token-replicated (decode): every rank routes all the tokens, runs its
+  experts' slice of the dispatch buffer, and an all-reduce sums the
+  buffers.
+
+The aux loss is averaged over the batch and tp axes (the reference's
+``pmean``); the shared SwiGLU is tensor-parallel like any MLP.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import Env, dense_init
+from ..distributed.collectives import all_gather, all_reduce, all_to_all
+from .common import Env, dense_init, leaf, under
 from .layers import init_swiglu, swiglu
 
 Params = Dict[str, Any]
@@ -44,13 +58,17 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, num_experts: int,
     slice (``common.DRAW_LIMIT``)."""
     E = num_experts
     p: Params = {
-        "router": dense_init(gen, (E, d_model), **kw),
-        "wg": dense_init(gen, (E, d_model, d_ff), in_axis=-2, **kw),
-        "wu": dense_init(gen, (E, d_model, d_ff), in_axis=-2, **kw),
-        "wd": dense_init(gen, (E, d_ff, d_model), in_axis=-2, **kw),
+        "router": dense_init(gen, (E, d_model), **leaf(kw, "router")),
+        "wg": dense_init(gen, (E, d_model, d_ff), in_axis=-2,
+                         **leaf(kw, "wg")),
+        "wu": dense_init(gen, (E, d_model, d_ff), in_axis=-2,
+                         **leaf(kw, "wu")),
+        "wd": dense_init(gen, (E, d_ff, d_model), in_axis=-2,
+                         **leaf(kw, "wd")),
     }
     if shared_experts:
-        p["shared"] = init_swiglu(gen, d_model, shared_experts * d_ff, kw)
+        p["shared"] = init_swiglu(gen, d_model, shared_experts * d_ff,
+                                  under(kw, "shared"))
     return p
 
 
@@ -104,9 +122,13 @@ def _expert_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return torch.bmm(h, wd.to(dtype))
 
 
-def _moe_local(x: torch.Tensor, p: Params, *, k: int, num_experts: int,
-               capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D).  Returns (y, the Switch load-balance aux loss)."""
+def _moe_local(env: Env, x: torch.Tensor, p: Params, *, k: int,
+               num_experts: int, capacity_factor: float,
+               token_replicated: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's MoE body (the reference's, run per shard): x (B, S, D)
+    its tokens; ``p``'s experts its E/tp.  Returns (y, the Switch
+    load-balance aux loss of its tokens)."""
     B, S, D = x.shape
     N = B * S
     xf = x.reshape(N, D)
@@ -118,7 +140,27 @@ def _moe_local(x: torch.Tensor, p: Params, *, k: int, num_experts: int,
     ids = top_ids.reshape(-1)                                  # (N*k,)
     capacity = max(int(math.ceil(N * k * capacity_factor / num_experts)), 1)
     buf, slot, valid = _dispatch_local(xf, ids, capacity, num_experts, k)
-    y_buf = _expert_ffn(buf, p["wg"], p["wu"], p["wd"])
+    if env.mesh is None:
+        y_buf = _expert_ffn(buf, p["wg"], p["wu"], p["wd"])
+    elif token_replicated:
+        # every rank holds every token: run this rank's experts' slice of
+        # the buffer; an all-reduce puts the slices together
+        e_local = p["wg"].shape[0]
+        lo = env.tp_rank * e_local
+        y_buf = torch.zeros_like(buf)
+        y_buf[lo:lo + e_local] = _expert_ffn(buf[lo:lo + e_local], p["wg"],
+                                             p["wu"], p["wd"])
+        y_buf = all_reduce(y_buf, env.tp_group)
+    else:
+        tp, e_local = env.tp, p["wg"].shape[0]
+        # (E, C, D) -> (tp, E_l, C, D) -> exchange -> rows for MY experts
+        recv = all_to_all(buf.reshape(tp, e_local, capacity, D),
+                          env.tp_group)
+        work = recv.transpose(0, 1).reshape(e_local, tp * capacity, D)
+        y_work = _expert_ffn(work, p["wg"], p["wu"], p["wd"])
+        back = y_work.reshape(e_local, tp, capacity, D).transpose(0, 1)
+        y_buf = all_to_all(back, env.tp_group).reshape(num_experts,
+                                                       capacity, D)
 
     # gather processed assignments and combine with routing weights
     y_flat = y_buf.reshape(num_experts * capacity, D)
@@ -131,15 +173,33 @@ def _moe_local(x: torch.Tensor, p: Params, *, k: int, num_experts: int,
 
 def moe_ffn(env: Env, p: Params, x: torch.Tensor, *, num_experts: int,
             experts_per_token: int, capacity_factor: float = 1.25,
-            tp: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE FFN sublayer.  Returns (y, load_balance_aux_loss).  ``tp`` is
-    the expert-parallel width; only 1 (one device) is ported."""
-    if tp > 1:
-        raise NotImplementedError(
-            f"expert parallelism (tp={tp}) is not ported yet: ROADMAP.md "
-            "Queue 1, item 9 (distribution)")
-    y, aux = _moe_local(x, p, k=experts_per_token, num_experts=num_experts,
-                        capacity_factor=capacity_factor)
+            shared_d_ff: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN sublayer.  Returns (y, load_balance_aux_loss).  The
+    expert-parallel width is ``env.tp``; ``shared_d_ff`` is the shared
+    SwiGLU's full hidden width (needed under a mesh)."""
+    kw = dict(k=experts_per_token, num_experts=num_experts,
+              capacity_factor=capacity_factor)
+    if env.mesh is None:
+        y, aux = _moe_local(env, x, p, **kw)
+    else:
+        tp, r = env.tp, env.tp_rank
+        if num_experts % tp:
+            raise ValueError(f"{num_experts} experts do not divide over "
+                             f"tp {tp}")
+        S = x.shape[1]
+        # prefill subdivides the sequence over the model axis (GShard);
+        # decode (seq 1) replicates tokens and splits by expert rank
+        token_parallel = S % tp == 0
+        if token_parallel:
+            s_l = S // tp
+            y, aux = _moe_local(env, x[:, r * s_l:(r + 1) * s_l], p, **kw)
+            y = all_gather(y, env.tp_group, dim=1)
+        else:
+            y, aux = _moe_local(env, x, p, token_replicated=True, **kw)
+        axes = tuple(env.batch_axes) + (env.tp_axis,)
+        aux = all_reduce(aux.reshape(1).clone(),
+                         env.mesh.group(axes))[0] / env.mesh.axis_size(axes)
     if "shared" in p:
-        y = y + swiglu(env, p["shared"], x)
+        y = y + swiglu(env, p["shared"], x, shared_d_ff)
     return y, aux

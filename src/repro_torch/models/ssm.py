@@ -7,6 +7,14 @@ recurrent state (H, hd, N) is carried.  A prompt's scan goes to
 card, its plain version on the CPU); this module holds the block plumbing
 (projections, depthwise causal conv, gating, the single-token decode
 update), in the reference's order of operations and casts.
+
+Under a tp mesh (``env.tp_shards`` of the SSD heads) each rank keeps its
+block of heads, split by structure (``distributed/sharding.py``): its
+heads' rows of ``z``, ``x`` and ``dt`` in ``in_proj`` and all of ``B`` and
+``C`` (one group, shared by every head), the conv over its ``x`` channels
+and all of ``B`` and ``C``.  The SSD kernel runs on the local heads; the
+gated RMS norm sums its squares over tp with one all-reduce, and the
+row-parallel ``out_proj`` ends in another.
 """
 
 from __future__ import annotations
@@ -17,8 +25,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.collectives import all_reduce
 from ..kernels.ssd_scan.ops import ssd_scan
-from .common import Env, dense_init
+from .common import Env, const, dense_init, leaf, ones, zeros
 from .layers import _linear, rms_norm
 
 Params = Dict[str, Any]
@@ -35,27 +44,31 @@ def ssm_dims(d_model: int, expand: int, head_dim: int, n_state: int,
 
 def init_ssm(gen: torch.Generator, d_model: int, *, expand: int,
              head_dim: int, n_state: int, conv_width: int,
-             device: torch.device, dtype: torch.dtype = torch.float32
-             ) -> Params:
+             kw: Dict[str, Any]) -> Params:
     """The reference's distributions; ``in_proj``/``out_proj`` in (out, in)
-    layout for ``F.linear``, ``conv_w`` (W, d_conv) as the reference."""
+    layout for ``F.linear``, ``conv_w`` (W, d_conv) as the reference.
+    ``kw``: the ``device``/``dtype`` (and a rank's shard, ``common.leaf``)."""
     dims = ssm_dims(d_model, expand, head_dim, n_state, conv_width)
     d_in, H = dims["d_inner"], dims["nheads"]
-    kw = dict(device=device, dtype=dtype)
-    in_proj = dense_init(gen, (2 * d_in + 2 * n_state + H, d_model), **kw)
-    out_proj = dense_init(gen, (d_model, d_in), **kw)
-    conv_w = dense_init(gen, (conv_width, dims["d_conv"]), in_axis=0, **kw)
-    u = torch.rand((H,), generator=gen, dtype=torch.float32, device=device)
+    device = kw["device"]
+    in_proj = dense_init(gen, (2 * d_in + 2 * n_state + H, d_model),
+                         **leaf(kw, "in_proj"))
+    out_proj = dense_init(gen, (d_model, d_in), **leaf(kw, "out_proj"))
+    conv_w = dense_init(gen, (conv_width, dims["d_conv"]), in_axis=0,
+                        **leaf(kw, "conv_w"))
+    u = torch.rand((H,), generator=gen, dtype=torch.float32,
+                   device=gen.device).to(device)
     dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     return {
         "in_proj": in_proj,
         "conv_w": conv_w,
-        "conv_b": torch.zeros(dims["d_conv"], **kw),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, H,
-                                          device=device)).to(dtype),
-        "D": torch.ones(H, **kw),
-        "dt_bias": torch.log(torch.expm1(dt)).to(dtype),
-        "norm": torch.zeros(d_in, **kw),
+        "conv_b": zeros((dims["d_conv"],), **leaf(kw, "conv_b")),
+        "A_log": const(torch.log(torch.linspace(1.0, 16.0, H,
+                                                device=device)),
+                       **leaf(kw, "A_log")),
+        "D": ones((H,), **leaf(kw, "D")),
+        "dt_bias": const(torch.log(torch.expm1(dt)), **leaf(kw, "dt_bias")),
+        "norm": zeros((d_in,), **leaf(kw, "norm")),
         "out_proj": out_proj,
     }
 
@@ -95,8 +108,12 @@ def ssm_block(env: Env, p: Params, x: torch.Tensor, cfg, *,
     """
     dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
                     cfg.ssm_state, cfg.ssm_conv_width)
-    d_in, H, hd, N = (dims["d_inner"], dims["nheads"], dims["head_dim"],
-                      dims["n_state"])
+    d_full, H, hd, N = (dims["d_inner"], dims["nheads"], dims["head_dim"],
+                        dims["n_state"])
+    shard = env.tp_shards(H)
+    if shard:                                 # this rank's block of heads
+        H //= env.tp
+    d_in = H * hd
     Bt, S, _ = x.shape
     proj = _linear(x, p["in_proj"])
     z, xin, Bmat, Cmat, dt = torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
@@ -127,7 +144,22 @@ def ssm_block(env: Env, p: Params, x: torch.Tensor, cfg, *,
         y = y[:, None].to(x.dtype)                              # (B,1,H,hd)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(Bt, S, d_in)
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    if shard:
+        y = _rms_norm_over_tp(env, y, p["norm"], d_full, cfg.norm_eps)
+    else:
+        y = rms_norm(y, p["norm"], cfg.norm_eps)
     y = y * F.silu(z.float()).to(x.dtype)
     out = _linear(y, p["out_proj"])
+    if shard:
+        out = all_reduce(out, env.tp_group)
     return out, (final_state, new_conv_state)
+
+
+def _rms_norm_over_tp(env: Env, y: torch.Tensor, scale: torch.Tensor,
+                      width: int, eps: float) -> torch.Tensor:
+    """``layers.rms_norm`` of a row split over tp: each rank's channels of
+    the full ``width``, its squares summed by an all-reduce."""
+    yf = y.float()
+    sq = all_reduce(yf.square().sum(dim=-1, keepdim=True), env.tp_group)
+    out = yf * torch.rsqrt(sq / width + eps)
+    return (out * (1.0 + scale.float())).to(y.dtype)

@@ -23,6 +23,14 @@ out_proj}``), the hybrid's ``shared`` attention+MLP block, ``final_norm``
 and, untied, ``head`` (V, D); projections in (out, in) layout.  The layer
 stack is a Python loop; the training ``forward`` checkpoints each layer body
 when ``env.remat``.  The audio family is ``models/encdec.py``'s.
+
+Under a mesh (``env.mesh``) every entry point works on this rank's shard:
+``init(..., env=env)`` draws only the rank's part of each leaf
+(``distributed/sharding.py`` ``local_index``), equal to the same part of
+the one-device init; ``init_cache`` allocates the rank's part of each entry
+(the counterpart of the reference's ``shard_cache``); ``prefill`` and
+``decode_step`` take the global batch, run the rank's part of it over the
+batch axes, and return the rank's logits (the whole vocabulary) and cache.
 """
 
 from __future__ import annotations
@@ -32,7 +40,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .common import Env, dense_init, embed_init, layer_call, resolve_device
+from ..distributed.sharding import local_batch, local_cache_index, local_index
+from .common import (Env, check_unsharded_training, dense_init, embed_init,
+                     layer_call, leaf, resolve_device, under, zeros)
 from .layers import (attention_block, embed, init_attention, init_swiglu,
                      lm_head, rms_norm, swiglu)
 from .moe import init_moe, moe_ffn
@@ -60,43 +70,60 @@ def _init_attn_ffn(cfg: ModelConfig, gen: torch.Generator,
     """A pre-norm attention + FFN block: every dense, vlm and moe layer, and
     the hybrid's shared block."""
     D = cfg.d_model
-    p: Params = {"ln1": torch.zeros(D, **kw),
+    p: Params = {"ln1": zeros((D,), **leaf(kw, "ln1")),
                  "attn": init_attention(gen, D, cfg.num_heads,
                                         cfg.num_kv_heads, cfg.head_dim,
-                                        cfg.qkv_bias, kw),
-                 "ln2": torch.zeros(D, **kw)}
+                                        cfg.qkv_bias, under(kw, "attn")),
+                 "ln2": zeros((D,), **leaf(kw, "ln2"))}
     if cfg.family == "moe":
         p["moe"] = init_moe(gen, D, cfg.d_ff, cfg.num_experts,
-                            cfg.shared_experts, kw)
+                            cfg.shared_experts, under(kw, "moe"))
     else:
-        p["mlp"] = init_swiglu(gen, D, cfg.d_ff, kw)
+        p["mlp"] = init_swiglu(gen, D, cfg.d_ff, under(kw, "mlp"))
     return p
+
+
+def shard_kw(cfg: ModelConfig, env: Optional[Env], device: torch.device,
+             dtype: torch.dtype) -> Dict[str, Any]:
+    """An initializer's keywords: under a mesh, with the rank's
+    ``local_index`` of every leaf (``common.leaf``)."""
+    kw: Dict[str, Any] = dict(device=device, dtype=dtype)
+    if env is not None and env.mesh is not None:
+        kw.update(prefix="", shard=lambda path, shape: local_index(
+            cfg, env.mesh, path, shape))
+    return kw
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, *,
          device: Optional[torch.device] = None,
-         dtype: torch.dtype = torch.float32) -> Params:
+         dtype: torch.dtype = torch.float32,
+         env: Optional[Env] = None) -> Params:
     """Random weights from ``gen`` with the reference's distributions:
     truncated normal / sqrt(fan_in) for projections, normal x 0.02 for the
     embedding, zeros for the (1 + scale) norm gains, the reference's
-    ``A_log``/``D``/``dt_bias`` for Mamba2 blocks."""
+    ``A_log``/``D``/``dt_bias`` for Mamba2 blocks.  Under ``env``'s mesh,
+    only this rank's shard of each leaf is drawn."""
     _check_family(cfg)
     dev = resolve_device(device)
     D, V = cfg.d_model, cfg.vocab_size
-    kw = dict(device=dev, dtype=dtype)
-    p: Params = {"embed": embed_init(gen, (V, D), **kw), "blocks": []}
-    for _ in range(cfg.num_layers):
+    kw = shard_kw(cfg, env, dev, dtype)
+    p: Params = {"embed": embed_init(gen, (V, D), **leaf(kw, "embed")),
+                 "blocks": []}
+    for i in range(cfg.num_layers):
+        bkw = under(kw, f"blocks/{i}")
         if cfg.family in _SSM_FAMILIES:
-            p["blocks"].append({"ln1": torch.zeros(D, **kw), "ssm": init_ssm(
+            p["blocks"].append({"ln1": zeros((D,), **leaf(bkw, "ln1")),
+                                "ssm": init_ssm(
                 gen, D, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
-                n_state=cfg.ssm_state, conv_width=cfg.ssm_conv_width, **kw)})
+                n_state=cfg.ssm_state, conv_width=cfg.ssm_conv_width,
+                kw=under(bkw, "ssm"))})
         else:
-            p["blocks"].append(_init_attn_ffn(cfg, gen, kw))
+            p["blocks"].append(_init_attn_ffn(cfg, gen, bkw))
     if cfg.family == "hybrid":
-        p["shared"] = _init_attn_ffn(cfg, gen, kw)
-    p["final_norm"] = torch.zeros(D, **kw)
+        p["shared"] = _init_attn_ffn(cfg, gen, under(kw, "shared"))
+    p["final_norm"] = zeros((D,), **leaf(kw, "final_norm"))
     if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, (V, D), **kw)
+        p["head"] = dense_init(gen, (V, D), **leaf(kw, "head"))
     return p
 
 
@@ -123,9 +150,10 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
     if cfg.family == "moe":
         f, aux = moe_ffn(env, bp["moe"], h, num_experts=cfg.num_experts,
                          experts_per_token=cfg.experts_per_token,
-                         capacity_factor=cfg.moe_capacity)
+                         capacity_factor=cfg.moe_capacity,
+                         shared_d_ff=cfg.shared_experts * cfg.d_ff)
     else:
-        f, aux = swiglu(env, bp["mlp"], h), None
+        f, aux = swiglu(env, bp["mlp"], h, cfg.d_ff), None
     return x + f, aux, new_kv
 
 
@@ -133,7 +161,7 @@ def _logits(env: Env, cfg: ModelConfig, params: Params,
             x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["head"]
-    return lm_head(env, table, x)
+    return lm_head(env, table, x, cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +172,7 @@ def _embed_prompt(env: Env, cfg: ModelConfig, params: Params,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token embeddings; vlm's ``patch_embeds`` (B, npatch, D) replace the
     first npatch of them."""
-    x = embed(env, params["embed"], batch["tokens"])
+    x = embed(env, params["embed"], batch["tokens"], cfg.vocab_size)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -159,6 +187,7 @@ def forward(env: Env, cfg: ModelConfig, params: Params,
     families.  Differentiable; each layer body is checkpointed when
     ``env.remat``."""
     _check_family(cfg)
+    check_unsharded_training(env)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_prompt(env, cfg, params, batch)
@@ -205,32 +234,39 @@ def _n_shared(cfg: ModelConfig) -> int:
     return cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
 
 
+def local_zeros(cfg: ModelConfig, env: Env, name: str, shape, dtype
+                ) -> torch.Tensor:
+    """Zeros of this rank's part of the cache entry ``name`` of full
+    ``shape`` (``sharding.local_cache_index``)."""
+    index = local_cache_index(cfg, env, name, shape)
+    local = tuple(n if ix is None else len(ix) for n, ix in zip(shape, index))
+    return torch.zeros(local, dtype=dtype, device=env.device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
                dtype: torch.dtype = torch.bfloat16) -> Cache:
     """Dense, vlm, moe: ``k``/``v`` (L, B, max_len, K, hd).  ssm/hybrid: ``state``
     (L, B, H, hd, N), fp32 whatever ``dtype`` is, and ``conv``
     (L, B, W-1, d_conv); the hybrid adds ``shared_k``/``shared_v``
-    (L // attn_period, B, max_len, K, hd)."""
+    (L // attn_period, B, max_len, K, hd).  ``batch`` is the global batch;
+    under a mesh each entry is this rank's part."""
     _check_family(cfg)
-    kw = dict(dtype=dtype, device=env.device)
     L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    shapes = {}
     if cfg.family not in _SSM_FAMILIES:
-        return {"k": torch.zeros((L, batch, max_len, K, hd), **kw),
-                "v": torch.zeros((L, batch, max_len, K, hd), **kw)}
-    dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
-                    cfg.ssm_state, cfg.ssm_conv_width)
-    cache: Cache = {
-        "state": torch.zeros((L, batch, dims["nheads"], dims["head_dim"],
-                              dims["n_state"]), dtype=torch.float32,
-                             device=env.device),
-        "conv": torch.zeros((L, batch, cfg.ssm_conv_width - 1,
-                             dims["d_conv"]), **kw),
-    }
-    if cfg.family == "hybrid":
-        ns = _n_shared(cfg)
-        cache["shared_k"] = torch.zeros((ns, batch, max_len, K, hd), **kw)
-        cache["shared_v"] = torch.zeros((ns, batch, max_len, K, hd), **kw)
-    return cache
+        shapes["k"] = shapes["v"] = ((L, batch, max_len, K, hd), dtype)
+    else:
+        dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                        cfg.ssm_state, cfg.ssm_conv_width)
+        shapes["state"] = ((L, batch, dims["nheads"], dims["head_dim"],
+                            dims["n_state"]), torch.float32)
+        shapes["conv"] = ((L, batch, cfg.ssm_conv_width - 1,
+                           dims["d_conv"]), dtype)
+        if cfg.family == "hybrid":
+            shapes["shared_k"] = shapes["shared_v"] = (
+                (_n_shared(cfg), batch, max_len, K, hd), dtype)
+    return {name: local_zeros(cfg, env, name, shape, dt)
+            for name, (shape, dt) in shapes.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -244,12 +280,13 @@ def prefill(env: Env, cfg: ModelConfig, params: Params,
     """batch: tokens (B, S) int; vlm also ``patch_embeds`` (B, npatch, D),
     which replace the first npatch token embeddings."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    B_all, S = batch["tokens"].shape
     max_len = max_len or S
+    batch = local_batch(env, batch)
+    B = batch["tokens"].shape[0]
     x = _embed_prompt(env, cfg, params, batch)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    cache = init_cache(cfg, B, max_len, env, dtype=x.dtype)
+    cache = init_cache(cfg, B_all, max_len, env, dtype=x.dtype)
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_stack_prefill(env, cfg, params, x, positions, cache)
     else:
@@ -297,11 +334,13 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
                 batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
     """batch: tokens (B,1) int, pos (B,) int (next position to write).
 
-    Returns (logits (B,1,V), cache); the cache is updated in place.
+    Returns (logits (B,1,V), cache); the cache is updated in place.  Under
+    a mesh ``batch`` is global and ``cache`` and the logits this rank's.
     """
     _check_family(cfg)
+    batch = local_batch(env, batch)
     tokens, pos = batch["tokens"], batch["pos"]
-    x = embed(env, params["embed"], tokens)
+    x = embed(env, params["embed"], tokens, cfg.vocab_size)
     positions = pos[:, None].long()
     kv_len = pos.long() + 1
     if cfg.family in _SSM_FAMILIES:

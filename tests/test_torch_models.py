@@ -118,9 +118,12 @@ def test_moe_ffn_names_its_roadmap_item_for_expert_parallelism():
                       num_experts=4, experts_per_token=2)
     p = transformer.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     x = torch.zeros((1, 2, 16))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    # expert parallelism (Queue 1, item 9) landed: its width is the env's
+    # tp, and the keyword that named it is gone
+    with pytest.raises(TypeError, match="tp"):
         moe.moe_ffn(TENV, p["blocks"][0]["moe"], x, num_experts=4,
                     experts_per_token=2, tp=2)
+    assert TENV.tp == 1
     y, aux = moe.moe_ffn(TENV, p["blocks"][0]["moe"], x, num_experts=4,
                          experts_per_token=2)
     assert tuple(y.shape) == (1, 2, 16) and aux.ndim == 0
