@@ -209,6 +209,7 @@ import gc
 import io
 import itertools
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -2289,7 +2290,10 @@ def train_kernel_checks(dev: torch.device) -> dict:
 
     out = {}
     flash_cases = (("minicpm_train", TRAIN_BATCH, TRAIN_SEQ, 36, 36, 64),
-                   ("gqa_train", 2, TRAIN_SEQ, 32, 8, 128))
+                   ("gqa_train", 2, TRAIN_SEQ, 32, 8, 128),
+                   # one rank's part on phase 13's (2, 2) mesh
+                   ("minicpm_2x2_rank", 2, TRAIN_SEQ, 18, 18, 64),
+                   ("minitron_2x2_rank", 2, TRAIN_SEQ, 12, 4, 128))
     for name, B, S, H, K, hd in flash_cases:
         inputs = (randn((B, S, H, hd)), randn((B, S, K, hd)),
                   randn((B, S, K, hd)))
@@ -2341,31 +2345,39 @@ def train_kernel_checks(dev: torch.device) -> dict:
     out["attention_fwd_bwd_ms"] = dev_ms
     del q, k, v, g_out, fns
 
-    Bt, S, H, P, N, chunk = TRAIN_BATCH, TRAIN_SEQ, 32, 64, 128, 256
-    inputs = (randn((Bt, S, H, P)),
-              0.01 + 0.19 * torch.rand((Bt, S, H), generator=gen, device=dev),
-              -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev)),
-              randn((Bt, S, N)), randn((Bt, S, N)))
-    w = [randn((Bt, S, H, P), torch.float32),
-         randn((Bt, H, P, N), torch.float32)]
-    (y, s), g = grads(lambda *a: ssd_ops.ssd_scan(*a, chunk=chunk), inputs, w)
-    (y_ref, s_ref), g_ref = grads(lambda *a: ssd_reference(*a, chunk=chunk),
-                                  inputs, w)
-    y_err, y_ok = err(y, y_ref, SSD_Y_TOLS[torch.bfloat16])
-    s_err, s_ok = err(s, s_ref, SSD_STATE_TOL)
-    g_errs = [err(a, b, TRAIN_GRAD_TOL) for a, b in zip(g, g_ref)]
-    ok = y_ok and s_ok and all(o for _, o in g_errs)
-    print(f"train kernel [mamba2_train] ssd Bt={Bt} S={S} H={H} P={P} N={N} "
-          f"chunk={chunk} bf16: y max_abs_err {y_err:.3g} (tol "
-          f"{SSD_Y_TOLS[torch.bfloat16]:g}), state {s_err:.3g} (tol "
-          f"{SSD_STATE_TOL:g}); dx/ddt/dA/dB/dC max_abs_err "
-          + "/".join(f"{e:.3g}" for e, _ in g_errs)
-          + f" (tol {TRAIN_GRAD_TOL:g} abs + rel; a plumbing check: the "
-          f"backward is autograd through the plain version, so it reads 0 "
-          f"when wired right) {'ok' if ok else 'MISMATCH'}", flush=True)
-    if not ok:
-        fail("SSD under autograd disagrees with the plain version")
-    out["mamba2_train"] = y_err
+    P, N, chunk = 64, 128, 256
+    # mamba2-370m's training shape, and one rank's part on phase 13's (2, 2)
+    for name, Bt, H in (("mamba2_train", TRAIN_BATCH, 32),
+                        ("mamba2_2x2_rank", 2, 16)):
+        S = TRAIN_SEQ
+        inputs = (randn((Bt, S, H, P)),
+                  0.01 + 0.19 * torch.rand((Bt, S, H), generator=gen,
+                                           device=dev),
+                  -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev)),
+                  randn((Bt, S, N)), randn((Bt, S, N)))
+        w = [randn((Bt, S, H, P), torch.float32),
+             randn((Bt, H, P, N), torch.float32)]
+        (y, s), g = grads(lambda *a: ssd_ops.ssd_scan(*a, chunk=chunk),
+                          inputs, w)
+        (y_ref, s_ref), g_ref = grads(
+            lambda *a: ssd_reference(*a, chunk=chunk), inputs, w)
+        y_err, y_ok = err(y, y_ref, SSD_Y_TOLS[torch.bfloat16])
+        s_err, s_ok = err(s, s_ref, SSD_STATE_TOL)
+        g_errs = [err(a, b, TRAIN_GRAD_TOL) for a, b in zip(g, g_ref)]
+        ok = y_ok and s_ok and all(o for _, o in g_errs)
+        print(f"train kernel [{name}] ssd Bt={Bt} S={S} H={H} P={P} N={N} "
+              f"chunk={chunk} bf16: y max_abs_err {y_err:.3g} (tol "
+              f"{SSD_Y_TOLS[torch.bfloat16]:g}), state {s_err:.3g} (tol "
+              f"{SSD_STATE_TOL:g}); dx/ddt/dA/dB/dC max_abs_err "
+              + "/".join(f"{e:.3g}" for e, _ in g_errs)
+              + f" (tol {TRAIN_GRAD_TOL:g} abs + rel; a plumbing check: the "
+              f"backward is autograd through the plain version, so it reads "
+              f"0 when wired right) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"SSD under autograd disagrees with the plain version on "
+                 f"{name}")
+        out[name] = y_err
+        del inputs, w, y, s, y_ref, s_ref, g, g_ref
     return out
 
 
@@ -2403,10 +2415,12 @@ def profile_train_step(name: str, step_fn, state, batch, wall_ms: float,
     return rec
 
 
-def train_runs(dev: torch.device, ours: set) -> dict:
+def train_runs(dev: torch.device, ours: set, losses_out: dict) -> dict:
     """Phase 10b-c: each TRAINED model through launch/train.py's
     ``run_training`` with both launch counts set to 0 just before and read
-    just after; returns each kernel's launches by model."""
+    just after; returns each kernel's launches by model and puts each
+    model's losses in ``losses_out`` (phase 13 holds its one-card mesh
+    against them)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -2434,6 +2448,7 @@ def train_runs(dev: torch.device, ours: set) -> dict:
         for name, n in counts.items():
             launches[name][arch] = n
         losses = res["losses"]
+        losses_out[arch] = list(losses)
         rec = {
             "arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "params": cfg.param_count(),
@@ -2477,6 +2492,21 @@ def train_runs(dev: torch.device, ours: set) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return launches
+
+
+def first_step_slack(mu_a: torch.Tensor, mu_b: torch.Tensor, opt
+                     ) -> torch.Tensor:
+    """Per element, what AdamW's first step may move a param by when two
+    steps' clipped gradients differ: it moves an element by lr u(G), u(G) =
+    G / (|G| + eps), G the clipped gradient, mu = (1 - b1) G.  By the mean
+    value theorem |u(G_a) - u(G_b)| <= eps |G_a - G_b| / (m + eps)^2, m the
+    smaller |G| (0 where the signs differ); times lr (the first step's is at
+    most ``opt.lr``), capped at 2 lr."""
+    g_a = mu_a.float() / (1 - opt.b1)
+    g_b = mu_b.float() / (1 - opt.b1)
+    m = torch.where(g_a * g_b > 0, torch.minimum(g_a.abs(), g_b.abs()), 0.0)
+    return opt.lr * torch.clamp(opt.eps * (g_a - g_b).abs()
+                                / (m + opt.eps) ** 2, max=2.0)
 
 
 def train_agreement(dev: torch.device) -> None:
@@ -2553,28 +2583,21 @@ def train_agreement(dev: torch.device) -> None:
         g_err, g_ok = worst(got["cpu"][1], got["cuda"][1])
         m_err, m_ok = worst(split(got["cpu"][2], "opt/"),
                             split(got["cuda"][2], "opt/"))
-        # the params: AdamW's first step moves an element by lr * u(G),
-        # u(G) = G / (|G| + eps), G the clipped gradient, mu = (1 - b1) G.
-        # Each device's G comes from its own mu, and by the mean value
-        # theorem |u(G_cpu) - u(G_card)| <= eps |G_cpu - G_card| / (m +
-        # eps)^2, m the smaller |G| (0 where the signs differ): that, times
-        # lr (at most 2 lr), is added to 1e-4 relative plus 1e-4 of lr
+        # the params: 1e-4 relative plus 1e-4 of lr, plus what the two
+        # devices' clipped gradients' difference moves the first step by
+        # (first_step_slack; each device's G from its own mu)
         cpu_mu = dict(split(got["cpu"][2], "opt/mu/"))
         card_mu = dict(split(got["cuda"][2], "opt/mu/"))
         p_err, p_ok, n_wide, wide_g, wide_lr = 0.0, True, 0, 0.0, 0.0
         for (k, a), (_, b) in zip(split(got["cpu"][2], "params/"),
                                   split(got["cuda"][2], "params/")):
             key = "opt/mu/" + k[len("params/"):]
-            g_a = cpu_mu[key].float() / (1 - opt.b1)
-            g_b = card_mu[key].float() / (1 - opt.b1)
-            m = torch.where(g_a * g_b > 0, torch.minimum(g_a.abs(),
-                                                         g_b.abs()), 0.0)
-            moved = opt.lr * torch.clamp(
-                opt.eps * (g_a - g_b).abs() / (m + opt.eps) ** 2, max=2.0)
+            moved = first_step_slack(cpu_mu[key], card_mu[key], opt)
             base = TRAIN_AGREE_TOL * a.abs() + TRAIN_AGREE_TOL * opt.lr
             wide = moved > base
             n_wide += int(wide.sum())
             if wide.any():
+                g_a = cpu_mu[key].float() / (1 - opt.b1)
                 wide_g = max(wide_g, float(g_a.abs()[wide].max()))
                 wide_lr = max(wide_lr, float(moved.max()) / opt.lr)
             d = (a - b).abs()
@@ -2672,10 +2695,11 @@ def launch_total(by_path: dict) -> int:
                for v in by_path.values())
 
 
-def train_phase(dev: torch.device, ours: set) -> dict:
-    """Phase 10; returns each kernel's launches by trained model."""
+def train_phase(dev: torch.device, ours: set, losses_out: dict) -> dict:
+    """Phase 10; returns each kernel's launches by trained model (and each
+    model's losses in ``losses_out``)."""
     train_kernel_checks(dev)
-    launches = train_runs(dev, ours)
+    launches = train_runs(dev, ours, losses_out)
     train_agreement(dev)
     train_resume(dev)
     return launches
@@ -3222,6 +3246,449 @@ def shard_check(job: str, per: list, R: int, phase5: dict,
         flush=True)
 
 
+# phase 13: sharded training over R = torch.cuda.device_count() ranks, one
+# card each (NCCL), started by the spawn helper, each job through the
+# launcher's run_training(mesh=...) inside the rank at full width and depth,
+# TRAIN_BATCH x TRAIN_SEQ global tokens a step, TRAIN_STEPS steps, bf16
+# compute over an fp32 master and AdamW state sharded FSDP x tp (ZeRO-3);
+# the counts are set to 0 in each rank just before its run and read just
+# after.  One more step after the run records the step's collectives and,
+# on rank 0, a torch.profiler trace.  On one card, a (1, 1) mesh: minicpm-2b
+# and mamba2-370m, their losses against phase 10's (the same run without a
+# mesh), the collectives of a step against predicted_train_collectives, and
+# mamba2-370m's state saved by the sharded save and restored onto no mesh,
+# bit-equal.  On four, a (2, 2) mesh: minicpm-2b (18 of 36 heads a rank),
+# minitron-4b (5.1 B params: 61 GB of fp32 master, mu and nu, which one card
+# cannot hold with a working copy and gradients), mamba2-370m (16 of 32 SSD
+# heads a rank), a reduced fp32 minicpm-2b step against one card's, and the
+# elastic restore: the reduced fp32 model saved at step 2 on (2, 2),
+# restored onto (1, 2) and onto one card, steps 3-4 against the
+# uninterrupted run's.
+TRAIN_SHARD_JOBS = {1: ("minicpm-2b", "mamba2-370m"),
+                    4: ("minicpm-2b", "minitron-4b", "mamba2-370m",
+                        "minicpm-2b fp32", "elastic")}
+TRAIN_SHARD_MESH = {1: (1, 1), 4: (2, 2)}
+#: the reduced fp32 jobs: batch, sequence, steps; fp32 within 1e-5
+TRAIN_SMALL = dict(batch=4, seq=64)
+TRAIN_SMALL_TOL = 1e-5
+
+
+def predicted_train_collectives(cfg, B: int, S: int) -> dict:
+    """The collectives one bf16 train step of a dense or ssm model issues
+    on a (1, 1) mesh (no FSDP gather on one batch rank; every tp
+    collective on a group of one): the vocab-parallel embedding's
+    all-reduce; per layer the forward's all-reduces (attention and MLP
+    outputs; an SSM block's gated-norm squares, fp32, and its output),
+    those its recomputation in the backward reaches (all but the layer's
+    last: the checkpoint stops recomputing once it has every tensor the
+    backward saved), and the backward's all-reduce of each sharded
+    sublayer's input gradient (and of the squares'); the head input's
+    gradient; the clipping norm's fp32 scalar."""
+    act = B * S * cfg.d_model * 2
+    sq = B * S * 4
+    if cfg.family == "ssm":
+        per_layer = [act, sq] + [sq] + [act, sq]
+    else:
+        per_layer = [act, act] + [act] + [act, act]
+    sizes = [act] + per_layer * cfg.num_layers + [act, 4]
+    return {"counts": {"all-reduce": len(sizes)},
+            "raw_bytes": {"all-reduce": sum(sizes)},
+            "wire_bytes": {"all-reduce": 0.0}}
+
+
+def shard_train(rank: int, mesh: tuple, arch: str, save_dir) -> dict:
+    """One training job inside rank ``rank``: launcher's run_training on
+    ``mesh`` at full width and depth, kernel launches counted around it,
+    then one more step recorded (collectives; rank 0 traced); with
+    ``save_dir``, the state saved by the sharded save and restored onto no
+    mesh, compared bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import recording
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.launch.train import run_training
+    from repro_torch.train import Checkpointer
+    from repro_torch.train.tree import tree_leaves_with_path
+
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    kernel.reset_launch_count()
+    ssd_kernel.reset_launch_count()
+    res = run_training(cfg, device="cuda", steps=TRAIN_STEPS,
+                       batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+                       log_every=TRAIN_STEPS, mesh=mesh)
+    counts = {"flash": kernel.launch_count(),
+              "ssd": ssd_kernel.launch_count()}
+    state, step_fn, batch, layout = (res.pop(k) for k in (
+        "state", "train_step", "batch", "layout"))
+    profiles: dict = {}
+    with recording() as stats, rank_profile(rank, profiles, "step"):
+        state, _ = step_fn(state, batch)
+    out = dict(res, launches=counts, collectives=stats.as_dict(),
+               profiles=profiles, layers=cfg.num_layers,
+               d_model=cfg.d_model, family=cfg.family,
+               params=cfg.param_count())
+    if save_dir is not None:
+        saved = Checkpointer(save_dir, async_save=False)
+        t0 = time.perf_counter()
+        saved.save(TRAIN_STEPS + 1, state, layout=layout)
+        t_save = time.perf_counter() - t0
+        restored, at, _ = saved.restore(state)
+        out["restore"] = {
+            "step": at, "save_s": t_save,
+            "bytes": sum(t.numel() * t.element_size()
+                         for _, t in tree_leaves_with_path(state)),
+            "equal": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                tree_leaves_with_path(restored),
+                tree_leaves_with_path(state)))}
+        del restored
+    del state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_batches(cfg, steps: int, dev) -> list:
+    from repro_torch.data import SyntheticTokens
+    src = SyntheticTokens(TRAIN_SMALL["seq"], TRAIN_SMALL["batch"],
+                          cfg.vocab_size, seed=SEED)
+    return [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in src.next().items()} for _ in range(steps)]
+
+
+def small_env(mesh: tuple, dev):
+    from repro_torch.launch.mesh import env_for_mesh, make_host_mesh
+    m = make_host_mesh(*mesh, device_type="cuda") if mesh else None
+    return env_for_mesh(m, dev, compute_dtype=torch.float32)
+
+
+def shard_train_fp32(rank: int, mesh: tuple) -> dict:
+    """The reduced minicpm-2b's fp32 step on ``mesh`` against the one-card
+    step (on this rank's card, no mesh) from the same draw and batch: the
+    gap of the loss and of every param, mu and nu element of the rank's
+    shard, a param's less ``first_step_slack`` of the two steps' mu (the
+    elements it widens past TRAIN_SMALL_TOL counted, with the largest
+    one-card |G| among them and the widest slack)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import (AdamWConfig, MeshLayout, init_train_state,
+                                   make_train_step)
+    from repro_torch.distributed.sharding import take
+    from repro_torch.train.tree import tree_leaves_with_path
+    dev = torch.device("cuda", rank)
+    cfg = get_config("minicpm-2b").reduced()
+    api = get_model(cfg)
+    opt = AdamWConfig(warmup=1, total_steps=10)
+    batch = small_batches(cfg, 1, dev)[0]
+    out = {}
+    for name, mesh_ in (("mesh", mesh), ("one", None)):
+        env = small_env(mesh_, dev)
+        state = init_train_state(api, torch.Generator(device=dev)
+                                 .manual_seed(SEED), opt, device=dev,
+                                 env=env if mesh_ else None)
+        out[name] = make_train_step(api, env, opt)(state, batch)
+        if mesh_:
+            layout = MeshLayout.of(cfg, env)
+    (mine, m_mesh), (whole, m_one) = out["mesh"], out["one"]
+    gaps = {"loss": abs(float(m_mesh["loss"]) - float(m_one["loss"]))}
+    one_mu = dict(tree_leaves_with_path(whole.opt.mu))
+    mesh_mu = dict(tree_leaves_with_path(mine.opt.mu))
+    wide = {"n": 0, "g": 0.0, "slack": 0.0}
+    for part, a_tree, b_tree in (("params", mine.params, whole.params),
+                                 ("mu", mine.opt.mu, whole.opt.mu),
+                                 ("nu", mine.opt.nu, whole.opt.nu)):
+        b_all = dict(tree_leaves_with_path(b_tree))
+        worst = 0.0
+        for path, a in tree_leaves_with_path(a_tree):
+            index = layout.rules[path].index
+            gap = (a - take(b_all[path], index)).abs()
+            if part == "params":
+                mu_one = take(one_mu[path], index)
+                slack = first_step_slack(mesh_mu[path], mu_one, opt)
+                over = slack > TRAIN_SMALL_TOL
+                if over.any():
+                    wide["n"] += int(over.sum())
+                    wide["g"] = max(wide["g"], float(
+                        (mu_one / (1 - opt.b1)).abs()[over].max()))
+                    wide["slack"] = max(wide["slack"], float(slack.max()))
+                gap = gap - slack
+            worst = max(worst, float(gap.max()) if gap.numel() else 0.0)
+        gaps[part] = worst
+    return {"gaps": gaps, "widened": wide}
+
+
+def elastic_run(rank: int, mesh, ckpt_dir: str, save: bool) -> dict:
+    """The elastic restore's runs of the reduced fp32 minicpm-2b: with
+    ``save``, steps 1-2 on ``mesh``, the sharded save at step 2, then the
+    uninterrupted steps 3-4; else the checkpoint restored onto ``mesh``
+    (None: one card, no mesh) and steps 3-4.  Returns steps 3-4's
+    losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.train import (AdamWConfig, Checkpointer,
+                                   checkpoint_layout, init_train_state,
+                                   make_train_step)
+    dev = torch.device("cuda", rank)
+    cfg = get_config("minicpm-2b").reduced()
+    api = get_model(cfg)
+    opt = AdamWConfig(warmup=1, total_steps=10)
+    env = small_env(mesh, dev)
+    batches = small_batches(cfg, 4, dev)
+    step = make_train_step(api, env, opt)
+    layout = checkpoint_layout(api, env, opt)
+    state = init_train_state(api, torch.Generator(device=dev).manual_seed(
+        SEED if save else SEED + 1), opt, device=dev,
+        env=env if mesh else None)
+    ckpt = Checkpointer(ckpt_dir, async_save=False)
+    if save:
+        for b in batches[:2]:
+            state, _ = step(state, b)
+        ckpt.save(2, state, layout=layout)
+    else:
+        state, at, _ = ckpt.restore(
+            state, sharding_fn=(lambda k, leaf: layout(k, leaf)[1])
+            if layout else None)
+        assert at == 2
+    losses = []
+    for b in batches[2:]:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return {"losses": losses}
+
+
+def train_shard_rank(rank: int, R: int, jobs: tuple, work: str) -> dict:
+    """Rank ``rank`` of phase 13: each job in turn, in one NCCL world."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    mesh = TRAIN_SHARD_MESH[R]
+    out = {}
+    for job in jobs:
+        if job == "elastic":
+            out[job] = elastic_run(rank, mesh, os.path.join(work, "elastic"),
+                                   True)
+        elif job.endswith(" fp32"):
+            out[job] = shard_train_fp32(rank, mesh)
+        else:
+            save = (os.path.join(work, "restore") if R == 1 and
+                    job == "mamba2-370m" else None)
+            out[job] = shard_train(rank, mesh, job, save)
+        torch.distributed.barrier()
+    return out
+
+
+def train_sharded_phase(phase10_losses: dict) -> dict:
+    """Phase 13; returns each kernel's launches (all ranks) by job."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.spawn import spawn
+    R = torch.cuda.device_count()
+    R = R if R in TRAIN_SHARD_MESH else 1
+    jobs = TRAIN_SHARD_JOBS[R]
+    skipped = sorted(set(TRAIN_SHARD_JOBS[4]) - set(jobs))
+    print(f"sharded training: ranks {R} (NCCL, one card a rank) on a "
+          f"{TRAIN_SHARD_MESH[R]} (data, model) mesh; runs {', '.join(jobs)}"
+          + (f"; not run for want of 4 cards: {', '.join(skipped)}"
+             if skipped else ""), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    build = HERE / "build"
+    build.mkdir(exist_ok=True)
+    launches = {"flash": {}, "ssd": {}}
+    with tempfile.TemporaryDirectory(dir=build) as work:
+        t0 = time.perf_counter()
+        ranks = spawn(train_shard_rank, R, args=(R, jobs, work),
+                      device="cuda", timeout=900)
+        print(f"sharded training: {R} ranks ran in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for job in jobs:
+            per = [r[job] for r in ranks]
+            if job == "elastic":
+                elastic_check(per, work)
+            elif job.endswith(" fp32"):
+                gaps = {k: max(p["gaps"][k] for p in per)
+                        for k in per[0]["gaps"]}
+                wide = {"elements": sum(p["widened"]["n"] for p in per),
+                        "largest_one_card_G": max(p["widened"]["g"]
+                                                  for p in per),
+                        "widest_slack": max(p["widened"]["slack"]
+                                            for p in per)}
+                ok = max(gaps.values()) <= TRAIN_SMALL_TOL
+                print(f"train sharded [{job} reduced, {TRAIN_SHARD_MESH[R]}"
+                      f" vs one card, one step, batch {TRAIN_SMALL['batch']}"
+                      f" x {TRAIN_SMALL['seq']}]: largest gaps over the "
+                      f"ranks {gaps} (tol {TRAIN_SMALL_TOL:g}; a param's "
+                      f"gap less what the two steps' gradient difference "
+                      f"moves AdamW's first step by, first_step_slack; "
+                      f"elements whose slack exceeds the tol: {wide}) "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    fail(f"{job}: the sharded step disagrees with one card's")
+            else:
+                train_shard_check(job, per, R, phase10_losses, launches)
+    return launches
+
+
+def elastic_check(per: list, work: str) -> None:
+    """Restore the (2, 2) run's step-2 checkpoint onto (1, 2) and onto one
+    card; steps 3-4 against the uninterrupted run's."""
+    from repro_torch.distributed.spawn import spawn
+    want = per[0]["losses"]
+    src = os.path.join(work, "elastic")
+    got = {}
+    for name, mesh in (("(1, 2)", (1, 2)), ("one card", None)):
+        d = os.path.join(work, f"elastic-{len(got)}")
+        shutil.copytree(src, d)
+        if mesh:
+            got[name] = spawn(elastic_run, 2, args=(mesh, d, False),
+                              device="cuda", timeout=300)[0]["losses"]
+        else:
+            got[name] = elastic_run(0, None, d, False)["losses"]
+    gap = max(abs(a - b) for ls in got.values() for a, b in zip(ls, want))
+    ok = gap <= TRAIN_SMALL_TOL and all(len(v) == 2 for v in got.values())
+    print(f"train elastic restore [minicpm-2b reduced fp32, saved at step 2 "
+          f"on (2, 2)]: steps 3-4 losses uninterrupted {want}, " +
+          ", ".join(f"restored onto {k} {v}" for k, v in got.items()) +
+          f"; largest gap {gap:.3g} (tol {TRAIN_SMALL_TOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("an elastic restore does not resume the uninterrupted run")
+
+
+def train_shard_check(job: str, per: list, R: int, phase10_losses: dict,
+                      launches: dict) -> None:
+    from repro_torch.configs import get_config
+    r0 = per[0]
+    cfg = get_config(job)
+    per_step = {"flash": 2 * (0 if cfg.family == "ssm" else cfg.num_layers),
+                "ssd": 2 * (cfg.num_layers if cfg.family == "ssm" else 0)}
+    expected = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    for p in per:
+        if p["launches"] != expected:
+            fail(f"{job}: a rank launched {p['launches']}, expected "
+                 f"{expected}")
+        if not all(np.isfinite(p["losses"])):
+            fail(f"{job}: a loss is not finite: {p['losses']}")
+        if p["losses"] != r0["losses"]:
+            fail(f"{job}: the ranks' losses differ")
+        if not p["peak_mem_bytes"] < CARD_BYTES:
+            fail(f"{job}: a rank's peak memory {p['peak_mem_bytes']} is not "
+                 f"under {CARD_BYTES:.0f}")
+    for name in ("flash", "ssd"):
+        launches[name][f"{job} {TRAIN_SHARD_MESH[R]}"] = sum(
+            p["launches"][name] for p in per)
+    note: dict = {}
+    if R == 1:
+        want = predicted_train_collectives(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        got = r0["collectives"]
+        ok = got["counts"] == want["counts"] and \
+            got["raw_bytes"] == want["raw_bytes"] and \
+            got["wire_bytes"] == want["wire_bytes"]
+        print(f"train sharded [{job} (1, 1)] collectives a step "
+              f"{got['counts']} {got['raw_bytes']} B vs predicted "
+              f"{want['counts']} {want['raw_bytes']} B "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"{job}: a step's collectives {got} != predicted {want}")
+        note["collectives_predicted"] = True
+        ref = phase10_losses.get(job)
+        first = next((i for i, (a, b) in enumerate(zip(r0["losses"], ref))
+                      if a != b), None)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref))
+        ok = first != 0 and rel <= RESUME_TOL and len(ref) == TRAIN_STEPS
+        print(f"train sharded [{job} (1, 1)] losses vs phase 10's (no mesh):"
+              f" {r0['losses']} vs {ref}; bit-equal: {first is None}"
+              + ("" if first is None else
+                 f"; first difference at step {first + 1}, "
+                 f"{abs(r0['losses'][first] - ref[first]):.3g} (the "
+                 f"embedding's backward adds by atomics on the card, so two "
+                 f"runs differ from the first update on)")
+              + f"; largest relative gap {rel:.3g} (tol {RESUME_TOL:g}; the "
+              f"first step's loss bit-equal) {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            fail(f"{job}: the (1, 1) mesh's losses disagree with phase 10's")
+        note["losses_bit_equal_to_phase10"] = first is None
+        note["first_loss_difference_step"] = None if first is None \
+            else first + 1
+    elif job in phase10_losses:
+        # the same global batches and draw as phase 10's one-card run; the
+        # mesh sums each product over tp shards and each gradient over the
+        # batch ranks in another order, so bf16 rounding parts the two from
+        # the first step on: held to RESUME_TOL, phase 10e's bound for two
+        # bf16 runs of one model
+        ref = phase10_losses[job]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref))
+        ok = rel <= RESUME_TOL and len(ref) == len(r0["losses"])
+        print(f"train sharded [{job} {TRAIN_SHARD_MESH[R]}] losses vs phase "
+              f"10's (one card, no mesh): {r0['losses']} vs {ref}; largest "
+              f"relative gap {rel:.3g} (tol {RESUME_TOL:g}, bf16) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"{job}: the {TRAIN_SHARD_MESH[R]} mesh's losses disagree "
+                 f"with phase 10's")
+        note["loss_rel_gap_to_phase10"] = rel
+    if "restore" in r0:
+        rs = r0["restore"]
+        print(f"train sharded [{job} (1, 1)] sharded save of {rs['bytes']} B"
+              f" ({rs['save_s']:.3f} s) restored onto no mesh bit-equal: "
+              f"{rs['equal']} {'ok' if rs['equal'] else 'MISMATCH'}",
+              flush=True)
+        if not rs["equal"]:
+            fail(f"{job}: the sharded save does not restore bit for bit")
+        note["restore_bit_equal"] = rs["equal"]
+    coll = r0["collectives"]
+    print(json.dumps({"train_sharded": {
+        "job": job, "arch": cfg.name, "family": cfg.family, "ranks": R,
+        "mesh": list(TRAIN_SHARD_MESH[R]), "layers": r0["layers"],
+        "d_model": r0["d_model"], "params": r0["params"],
+        "dtype": "bf16 compute, fp32 master and AdamW, FSDP x tp",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": r0["steps"],
+        "step_ms_p50": r0["step_ms_p50"], "step_ms": r0["step_ms"],
+        "tokens_per_s": r0["tokens_per_s"], "wall_s": r0["wall_s"],
+        "peak_mem_bytes_by_rank": [p["peak_mem_bytes"] for p in per],
+        "collectives_per_step": {k: coll[k] for k in (
+            "counts", "raw_bytes", "wire_bytes", "total_raw_bytes",
+            "total_wire_bytes")},
+        "flash_launches_by_rank": [p["launches"]["flash"] for p in per],
+        "ssd_launches_by_rank": [p["launches"]["ssd"] for p in per],
+        "expected_launches_per_rank": expected,
+        "loss_first": r0["losses"][0], "loss_last": r0["losses"][-1],
+        "profile_rank0": r0["profiles"], **note}}), flush=True)
+
+
+DRYRUN_CELLS = (["--arch", "mamba2-370m", "--shape", "decode_32k", "--mesh",
+                 "single", "--no-calibrate"],
+                ["--arch", "minicpm-2b", "--shape", "train_4k", "--mesh",
+                 "single"])
+
+
+def dryrun_phase() -> None:
+    """The dry run in process, on meta tensors under a fake process group:
+    the reference's slow test's cell and a training cell."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory() as out:
+        for argv in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            cells = dryrun.main(argv + ["--out", out])
+            c = cells[0]
+            if c["status"] != "ok":
+                fail(f"the dry run's cell {argv} failed: {c}")
+            ok = (c["chips"] == 256
+                  and c["cost"]["flops_per_device"] > 0
+                  and c["memory"]["total_per_device"] > 0)
+            print(f"dryrun [{' '.join(argv)}]: {c['status']}, {c.get('chips')}"
+                  f" chips, {c['cost']['flops_per_device']:.4g} FLOP and "
+                  f"{c['cost']['bytes_per_device']:.4g} B a device, memory "
+                  f"{c['memory']['total_per_device']} B, roofline "
+                  f"{c['roofline']['dominant']} on {c['hardware']}, "
+                  f"{time.perf_counter() - t0:.1f} s "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                fail(f"the dry run's cell {argv} failed: {c}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3240,6 +3707,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
+    clock = [time.perf_counter()] * 2
+
+    def phase_time(label: str) -> None:
+        """Prints the wall seconds since the last call and since the start."""
+        now = time.perf_counter()
+        print(f"phase time [{label}]: {now - clock[1]:.1f} s (script at "
+              f"{now - clock[0]:.1f} s)", flush=True)
+        clock[1] = now
 
     # 1. device ---------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -3276,7 +3751,7 @@ def main() -> int:
             continue
         for fn, n in sorted(hmma[name].items()):
             print(f"  sass: {fn}: {n} HMMA")
-    sys.stdout.flush()
+    phase_time("1-2 device, build")
 
     # 3a. flash kernel vs plain ---------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3322,6 +3797,13 @@ def main() -> int:
         ("qwen2_72b_tp4_rank", 1, PROMPT_LEN, PROMPT_LEN, 16, 2, 128,
          torch.bfloat16, 0),
         ("moonshot_tp4_rank", 1, PROMPT_LEN, PROMPT_LEN, 4, 4, 128,
+         torch.bfloat16, 0),
+        # one rank's batch and heads on phase 13's (2, 2) training mesh:
+        # minicpm-2b's 18 of 36 heads, minitron-4b's 12 of 24 query and 4
+        # of 8 KV heads, 2 of the 4 sequences
+        ("minicpm_2x2_rank", 2, TRAIN_SEQ, TRAIN_SEQ, 18, 18, 64,
+         torch.bfloat16, 0),
+        ("minitron_2x2_rank", 2, TRAIN_SEQ, TRAIN_SEQ, 12, 4, 128,
          torch.bfloat16, 0),
     ]
     errors = {}
@@ -3402,6 +3884,9 @@ def main() -> int:
         # one rank's 8 of mamba2-370m's 32 heads at tp 4 (phase 12)
         ("mamba2_tp4_rank", 1, PROMPT_LEN, 8, 64, 128, 256, torch.bfloat16,
          False),
+        # one rank's 2 sequences and 16 of 32 heads on phase 13's (2, 2)
+        ("mamba2_2x2_rank", 2, TRAIN_SEQ, 16, 64, 128, 256, torch.bfloat16,
+         False),
         ("zamba2", 1, PROMPT_LEN, 64, 64, 64, 256, torch.bfloat16, False),
         ("padded_bf16", 2, 1000, 8, 64, 128, 256, torch.bfloat16, False),
         ("short_bf16", 2, 100, 8, 64, 128, 256, torch.bfloat16, False),
@@ -3462,19 +3947,24 @@ def main() -> int:
           f"{ssd_bytes:.0f} B)", flush=True)
     del x, dt, A, Bm, Cm, args, full, y1, y2, s1, s2, fns
     torch.cuda.empty_cache()
+    phase_time("3 kernels vs plain")
 
     # 4-5. plan, and serve at full width ------------------------------------------
     phase5: dict = {}
     launches = serve_phase(dev, port_kernels, phase5)
+    phase_time("4-5 plan, serve")
 
     # 6. agreement with the CPU at a small size ---------------------------------
     agreement_phase(dev)
+    phase_time("6 agreement")
 
     # 7. scheduler: the sweep engine and the mapper search -------------------------
     sweep_entry = scheduler_phase(dev)
+    phase_time("7 scheduler")
 
     # 8. fleet: fleet co-simulation and the online controller ----------------------
     fleet = fleet_phase()
+    phase_time("8 fleet")
     sweep_entry["launches"] += fleet["launches"]
     sweep_entry["launches_by_path"].update(
         simulate_fleet=fleet["fleet_launches"],
@@ -3486,24 +3976,36 @@ def main() -> int:
     # 9. stream: the runtime's operator kernels, the chaos day, the
     # recalibration rails and the stream under WallClock ------------------------
     stream_entries, runtime_sweeps = stream_phase(dev)
+    phase_time("9 stream")
     sweep_entry["launches"] += runtime_sweeps
     sweep_entry["launches_by_path"]["runtime"] = runtime_sweeps
 
     # 10. train: the kernels under autograd, minicpm-2b and mamba2-370m at
     # full width and depth, agreement with the CPU, resume -----------------
-    trained = train_phase(dev, port_kernels)
+    phase10_losses: dict = {}
+    trained = train_phase(dev, port_kernels, phase10_losses)
+    phase_time("10 train")
     for name in ("flash", "ssd"):
         launches[name]["train"] = trained[name]
 
     # 11. analysis: the static-analysis CLI, prove --simulate on the kernel --
     prove_launches = analysis_phase()
+    phase_time("11 analysis")
     sweep_entry["launches"] += prove_launches
     sweep_entry["launches_by_path"]["analysis_prove"] = prove_launches
 
     # 12. sharded serving over every visible card -----------------------------
     sharded = sharded_phase(phase5)
+    phase_time("12 sharded serving")
     for name in ("flash", "ssd"):
         launches[name]["sharded"] = sharded[name]
+
+    # 13. sharded training over every visible card, and the dry run -----------
+    train_sharded = train_sharded_phase(phase10_losses)
+    for name in ("flash", "ssd"):
+        launches[name]["train_sharded"] = train_sharded[name]
+    dryrun_phase()
+    phase_time("13 sharded training, dry run")
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd",

@@ -14,8 +14,29 @@ factors are the reference's:
     collective-permute: bytes
 
 ``raw_bytes`` sums each call's per-rank result bytes, as the parser sums the
-result shapes of the HLO ops.  The port produces no HLO, so the reference's
+result shapes of the HLO ops (a reduce-scatter's wire bytes come from its
+input, as the formula says).  The port produces no HLO, so the reference's
 text parser (``parse_collectives``) has no input here and is not copied.
+
+Training differentiates through collectives, which GSPMD gave the
+reference for free.  The functions of the second half of this module are
+``torch.autograd.Function`` pairs whose backward is the collective's
+transpose, issued through the same wrappers, so :func:`recording` counts
+the backward's collectives too.  Their convention is Megatron's: a tensor
+replicated over the tp ranks carries the *whole* gradient of the rank's
+loss on every one of them, and the batch axes sum their ranks' gradients.
+
+    gather       all-gather        | reduce-scatter (the sum over the group)
+    scatter_sum  reduce-scatter    | all-gather
+    copy_to      identity          | all-reduce     (Megatron's f)
+    reduce_from  all-reduce        | identity       (Megatron's g)
+    gather_from  all-gather        | this rank's block
+    split_to     this rank's block | all-gather
+    exchange     all-to-all        | the inverse all-to-all
+
+Without grad (serving) each of them is the plain wrapper, or nothing where
+its forward is the identity or a slice, so serving issues the collectives
+it issued before.
 
 A wrapper issues its collective on a group of one too (NCCL runs on a
 single card), where the ring factors give it 0 wire bytes.  A permute whose
@@ -66,14 +87,17 @@ class CollectiveStats:
         return "; ".join(parts) if parts else "none"
 
     def add(self, op: str, nbytes: int, group_size: int, *,
-            moved: bool = True) -> None:
+            moved: bool = True, wire_nbytes: Optional[int] = None) -> None:
         """One collective of ``op`` whose per-rank result is ``nbytes``
         over a group of ``group_size``; ``moved=False`` (a permute onto
-        this rank) puts no bytes on a wire."""
+        this rank) puts no bytes on a wire; ``wire_nbytes``: the bytes the
+        ring factor applies to, where not the result's (a reduce-scatter's
+        input)."""
         factor = _FACTOR[op](group_size) if moved else 0.0
+        base = nbytes if wire_nbytes is None else wire_nbytes
         self.counts[op] = self.counts.get(op, 0) + 1
         self.raw_bytes[op] = self.raw_bytes.get(op, 0) + int(nbytes)
-        self.wire_bytes[op] = self.wire_bytes.get(op, 0.0) + nbytes * factor
+        self.wire_bytes[op] = self.wire_bytes.get(op, 0.0) + base * factor
 
     def as_dict(self) -> Dict[str, object]:
         return {"counts": dict(self.counts), "raw_bytes": dict(self.raw_bytes),
@@ -97,11 +121,12 @@ def recording(stats: Optional[CollectiveStats] = None
             _ACTIVE.remove(stats)
 
 
-def _record(op: str, nbytes: int, group_size: int, moved: bool = True
-            ) -> None:
+def _record(op: str, nbytes: int, group_size: int, moved: bool = True,
+            wire_nbytes: Optional[int] = None) -> None:
     with _LOCK:
         for stats in _ACTIVE:
-            stats.add(op, nbytes, group_size, moved=moved)
+            stats.add(op, nbytes, group_size, moved=moved,
+                      wire_nbytes=wire_nbytes)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -111,17 +136,39 @@ def _nbytes(t: torch.Tensor) -> int:
 #: the all-gather into one tensor (renamed in later torch releases)
 _gather_flat = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
+#: the reduce-scatter from one tensor (renamed likewise)
+_scatter_flat = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
 
 
 def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """In-place sum of ``t`` over ``group``; returns ``t``."""
-    dist.all_reduce(t, group=group)
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """In-place reduction (``op``: "sum" or "max") of ``t`` over ``group``;
+    returns ``t``."""
+    dist.all_reduce(t, op=_OPS[op], group=group)
     _record("all-reduce", _nbytes(t), group_size(group))
     return t
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of the ranks' ``t`` over ``group``, cut along ``dim`` into
+    equal blocks in group-rank order: this rank's block."""
+    g = group_size(group)
+    dim = dim % t.ndim
+    if t.shape[dim] % g:
+        raise ValueError(f"dimension {t.shape[dim]} does not divide over "
+                         f"{g} ranks")
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // g,) + tuple(x.shape[1:]))
+    _scatter_flat(out, x, group=group)
+    _record("reduce-scatter", _nbytes(out), g, wire_nbytes=_nbytes(x))
+    return out.movedim(0, dim)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -169,3 +216,158 @@ def permute(t: torch.Tensor, *, send_to: int, recv_from: int,
         req.wait()
     _record("collective-permute", _nbytes(out), g)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Collectives that carry gradients
+# ---------------------------------------------------------------------------
+
+def _block_of(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` cut along ``dim`` over ``group``."""
+    g = group_size(group)
+    n = t.shape[dim] // g
+    return t.narrow(dim, dist.get_rank(group) * n, n)
+
+
+def _fresh(g: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy for an in-place collective on a gradient, which
+    autograd may share with another consumer."""
+    return g.clone(memory_format=torch.contiguous_format)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(_fresh(g), ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(_fresh(t), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_of(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block_of(t, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group), None
+
+
+def _differentiated(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along ``dim``; the backward reduce-scatters the gradient
+    (FSDP's weight gather, whose backward is also the batch axes' gradient
+    sum; the sequence-parallel gather before a column-parallel input)."""
+    if _differentiated(t):
+        return _Gather.apply(t, group, dim)
+    return all_gather(t, group, dim)
+
+
+def scatter_sum(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Reduce-scatter along ``dim``; the backward all-gathers (the
+    sequence-parallel form of a row-parallel output's all-reduce)."""
+    if _differentiated(t):
+        return _ScatterSum.apply(t, group, dim)
+    return reduce_scatter(t, group, dim)
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """Identity; the backward all-reduces the gradient (Megatron's f: the
+    input of a column-parallel region, or a replicated weight whose ranks
+    compute different parts of its gradient)."""
+    if _differentiated(t):
+        return _CopyTo.apply(t, group)
+    return t
+
+
+def reduce_from(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce (in place without grad); the backward passes the
+    gradient through (Megatron's g: a row-parallel output)."""
+    if _differentiated(t):
+        return _ReduceFrom.apply(t, group)
+    return all_reduce(t, group)
+
+
+def gather_from(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """All-gather along ``dim`` into a tensor every rank then uses whole;
+    the backward keeps this rank's block of the gradient."""
+    if _differentiated(t):
+        return _GatherFrom.apply(t, group, dim)
+    return all_gather(t, group, dim)
+
+
+def split_to(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of a replicated tensor; the
+    backward all-gathers the blocks' gradients."""
+    if _differentiated(t):
+        return _SplitTo.apply(t, group, dim)
+    return _block_of(t, group, dim)
+
+
+def exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_to_all`; the backward is the same exchange, its own
+    inverse."""
+    if _differentiated(t):
+        return _Exchange.apply(t, group)
+    return all_to_all(t, group)

@@ -1,11 +1,18 @@
-"""Analytic roofline estimators for the serving planner, on a stated card.
+"""Roofline terms and analytic estimators, on a stated card.
 
-The planner's PerfModels are tokens/s of a model stage as a function of the
-GPUs assigned — the LM-stage analogue of the paper's thread->rate profiles
-(non-linear for the same root cause: contention on the interconnect and
-sub-efficient matrix tiles).  The formulas are the reference's
-(``repro/distributed/roofline.py``); the hardware they are evaluated on is
-an explicit :class:`Hardware` argument instead of module constants.
+Two uses, as the reference's ``repro/distributed/roofline.py``:
+
+1. the dry run's roofline (``launch/dryrun.py``): a cell's per-device
+   FLOPs, bytes and collective wire bytes turned into three times
+   (:func:`terms_from_compiled`);
+2. the serving planner's PerfModels: tokens/s of a model stage as a
+   function of the GPUs assigned — the LM-stage analogue of the paper's
+   thread->rate profiles (non-linear for the same root cause: contention
+   on the interconnect and sub-efficient matrix tiles).
+
+The formulas are the reference's; the hardware they are evaluated on is an
+explicit :class:`Hardware` argument (:data:`H100_SXM` by default) instead
+of the reference's module constants, which describe a TPU.
 """
 
 from __future__ import annotations
@@ -42,6 +49,38 @@ class Hardware:
 H100_SXM = Hardware(name="H100-SXM (datasheet)", peak_flops=989e12,
                     hbm_bw=3.35e12, link_bw=450e9, hbm_bytes=80e9,
                     matrix_tile=64)
+
+
+@dataclasses.dataclass(frozen=True)
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_s(self) -> float:
+        """The bound: the largest term (perfect overlap of the three)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+
+def terms_from_compiled(flops_per_device: float, bytes_per_device: float,
+                        collective_bytes_per_device: float, *,
+                        hardware: Hardware = H100_SXM,
+                        links: int = 1) -> RooflineTerms:
+    """The three roofline times of one device's step on ``hardware``:
+    FLOPs over its bf16 peak, bytes over its memory rate, collective wire
+    bytes over ``links`` of its interconnect."""
+    return RooflineTerms(
+        compute_s=flops_per_device / hardware.peak_flops,
+        memory_s=bytes_per_device / hardware.hbm_bw,
+        collective_s=collective_bytes_per_device / (hardware.link_bw
+                                                    * links))
 
 
 def flops_per_token(cfg: ModelConfig, seq_in_context: int) -> float:

@@ -44,14 +44,47 @@ port splits by structure instead and the outputs stay the same:
   reference's long-context cache spreads the KV sequence over them
   instead.
 
+Training (``local_index(..., batch_axes=...)``, the rule with
+``serving=False``) also keeps the rank's block of every dimension the rule
+gives "F" (the batch axes), ZeRO-3 style: the fp32 master and AdamW's
+moments are that shard, and each layer all-gathers its working weights
+over the batch axes just before use (``models/common.py``
+``fsdp_gather``), whose backward reduce-scatters their gradients.  A leaf
+replicated over some ranks has its gradient summed over exactly the ranks
+that computed different parts of it (:func:`grad_rule`,
+:func:`reduce_grads`):
+
+* a leaf that ``_fit`` leaves whole over the batch axes (norm gains,
+  biases, anything whose "F" dimension does not divide): the batch axes'
+  sum (an all-reduce), as every batch rank saw other tokens;
+* a KV head shared by tp ranks (GQA below the width): the ``wk``/``wv``
+  (and ``bk``/``bv``) rows of the ranks that hold it, summed through a
+  buffer of all ``K * hd`` rows over tp (each rank adds only the heads its
+  query heads read);
+* the SSM's ``B``/``C`` rows of ``in_proj`` and their conv channels
+  (``conv_w``, ``conv_b``), kept by every tp rank: the tp sum, as each
+  rank's heads read them;
+* everything else replicated over tp (norms, a replicated vocabulary, the
+  attention where heads do not divide, whisper's ``pos_embed``) is computed
+  whole on every tp rank, so its gradient is already the same there;
+  where the model code makes ranks compute different parts of such a leaf
+  it sums them itself, in the graph: the MoE router under token
+  parallelism and the norm gains under sequence parallelism
+  (``collectives.copy_to`` on the weight).
+
+The same rules say which rank *owns* a replicated element (the first of
+those holding it), so a global norm counts every element once
+(:func:`owned_mask`).
+
 The rules need only the mesh's axis names and sizes, so they run on
 meshes of names and sizes alone, with no process group.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -327,13 +360,54 @@ def _ssm_rows(cfg, tp: int, r: int) -> Dict[str, torch.Tensor]:
             "conv": torch.cat([chans, d_in + bc])}
 
 
+class _RuleEnv(NamedTuple):
+    """What the rules read of an ``Env``."""
+    mesh: Mesh
+    batch_axes: Tuple[str, ...]
+    tp_axis: Optional[str]
+
+
+def fsdp_dim(mesh: Optional[Mesh], batch_axes: Sequence[str], path: str,
+             shape: Sequence[int]) -> Optional[int]:
+    """The dimension of the port leaf at ``path`` (full ``shape``) that
+    training splits over ``batch_axes`` (the rule's "F", where it
+    divides), or None."""
+    if mesh is None or not batch_axes:
+        return None
+    env = _RuleEnv(mesh, tuple(batch_axes),
+                   "model" if "model" in mesh.shape else None)
+    spec = port_param_spec(env, path, shape, serving=False)
+    for dim, entry in enumerate(spec):
+        if entry == tuple(batch_axes):
+            return dim
+    return None
+
+
 def local_index(cfg, mesh: Optional[Mesh], path: str,
                 shape: Sequence[int],
-                coords: Optional[Dict[str, int]] = None) -> Index:
+                coords: Optional[Dict[str, int]] = None, *,
+                batch_axes: Sequence[str] = ()) -> Index:
     """Per dimension of the port leaf at ``path`` (full ``shape``), the
     indices this rank keeps, or None for all of them.  Only the tp axis
     ("model") splits a weight in serving; see the module's notes for where
-    the split follows the structure rather than the rule."""
+    the split follows the structure rather than the rule.  With
+    ``batch_axes`` (training), the rank also keeps its block of the
+    dimension :func:`fsdp_dim` names."""
+    index = list(_tp_index(cfg, mesh, path, shape, coords))
+    dim = fsdp_dim(mesh, batch_axes, path, shape)
+    if dim is not None:
+        coords = mesh.coords if coords is None else coords
+        index[dim] = _block(shape[dim], mesh.axis_size(tuple(batch_axes)),
+                            mesh.index(tuple(batch_axes), coords))
+    # a block of one part is the whole dimension
+    return tuple(None if ix is not None and len(ix) == n and
+                 bool((ix == torch.arange(n)).all()) else ix
+                 for ix, n in zip(index, shape))
+
+
+def _tp_index(cfg, mesh: Optional[Mesh], path: str, shape: Sequence[int],
+              coords: Optional[Dict[str, int]] = None) -> Index:
+    """The tp part of :func:`local_index`."""
     none: Index = (None,) * len(shape)
     if mesh is None or "model" not in mesh.shape:
         return none
@@ -390,6 +464,112 @@ def local_index(cfg, mesh: Optional[Mesh], path: str,
                      "norm": (0, "chans"), "out_proj": (1, "chans")}[name]
         return on(dim, _ssm_rows(cfg, tp, r)[part])
     return none
+
+
+@dataclasses.dataclass(frozen=True)
+class GradRule:
+    """How one leaf's gradient is completed and its elements counted,
+    on one rank (see the module's notes)."""
+
+    #: the rank's training-layout index of the leaf
+    index: Index
+    #: the dimension split over the batch axes, or None
+    fsdp_dim: Optional[int]
+    #: replicated over the batch axes: its gradient is summed over them
+    dp_sum: bool
+    #: rows (``dim``) kept by several tp ranks: the local positions, their
+    #: slots in a buffer of ``slots`` rows summed over tp
+    tp_shared: Optional[Tuple[int, torch.Tensor, torch.Tensor, int]]
+    #: which local elements this rank owns: True (all), False (none) or
+    #: ``(dim, bool mask)``
+    owned: object
+
+
+def _kv_first_holders(cfg, tp: int) -> Dict[int, int]:
+    """For each KV head, the lowest tp rank holding it."""
+    first: Dict[int, int] = {}
+    for r in range(tp):
+        f, n = kv_heads(cfg.num_heads, cfg.num_kv_heads, tp, r, True)
+        for j in range(f, f + n):
+            first.setdefault(j, r)
+    return first
+
+
+def grad_rule(cfg, env, path: str, shape: Sequence[int]) -> GradRule:
+    """The gradient rule of the port leaf at ``path`` (full ``shape``) on
+    this rank of ``env``'s mesh (the training layout)."""
+    mesh = env.mesh
+    batch = tuple(env.batch_axes)
+    index = local_index(cfg, mesh, path, shape, batch_axes=batch)
+    tp_index = _tp_index(cfg, mesh, path, shape)
+    dp = env.dp
+    f_dim = fsdp_dim(mesh, batch, path, shape)
+    dp_owner = f_dim is not None or not batch or mesh.index(batch) == 0
+    tp = env.tp
+    r = env.tp_rank
+    parts = path.split("/")
+    name, parent = parts[-1], (parts[-2] if len(parts) > 1 else "")
+    shared = None
+    owned: object = True
+    if all(ix is None for ix in tp_index):
+        owned = r == 0                    # whole on every tp rank
+    elif parent in ("attn", "self_attn", "cross_attn") and \
+            name in ("wk", "wv", "bk", "bv") and cfg.num_kv_heads % tp:
+        hd = cfg.head_dim
+        rows = tp_index[0]
+        first = _kv_first_holders(cfg, tp)
+        shared = (0, torch.arange(len(rows)), rows, cfg.num_kv_heads * hd)
+        owned = (0, torch.tensor([first[int(g) // hd] == r for g in rows]))
+    elif parent == "ssm" and name in ("in_proj", "conv_w", "conv_b"):
+        N = cfg.ssm_state
+        d_l = (cfg.ssm_expand * cfg.d_model) // tp
+        start = 2 * d_l if name == "in_proj" else d_l
+        dim = 1 if name == "conv_w" else 0
+        local = torch.arange(start, start + 2 * N)
+        shared = (dim, local, torch.arange(2 * N), 2 * N)
+        n = len(tp_index[dim])
+        mask = torch.ones(n, dtype=torch.bool)
+        mask[local] = r == 0
+        owned = (dim, mask)
+    if not dp_owner:
+        owned = False
+    return GradRule(index, f_dim, dp > 1 and f_dim is None, shared, owned)
+
+
+def owned_mask(rule: GradRule, g: torch.Tensor) -> Optional[torch.Tensor]:
+    """A 0/1 float mask broadcastable to the local ``g`` that counts each
+    replicated element on one rank only; None where the rank owns all."""
+    if rule.owned is True:
+        return None
+    if rule.owned is False:
+        return torch.zeros((), dtype=torch.float32, device=g.device)
+    dim, mask = rule.owned
+    shape = [1] * g.ndim
+    shape[dim] = g.shape[dim]
+    return mask.to(device=g.device, dtype=torch.float32).reshape(shape)
+
+
+def reduce_grads(env, rules: Dict[str, GradRule],
+                 grads: Dict[str, torch.Tensor]) -> None:
+    """Complete each gradient (path -> local tensor, in place) by its rule:
+    the batch axes' sum of a leaf replicated over them, the tp sum of the
+    rows kept by several tp ranks.  The FSDP leaves' batch sum happened in
+    the backward of their gather."""
+    from . import collectives
+    for path, g in grads.items():
+        rule = rules[path]
+        if rule.dp_sum:
+            collectives.all_reduce(g, env.mesh.group(tuple(env.batch_axes)))
+        if rule.tp_shared is not None and env.tp > 1:
+            dim, local, slots, n = rule.tp_shared
+            part = g.index_select(dim, local.to(g.device))
+            shape = list(part.shape)
+            shape[dim] = n
+            buf = part.new_zeros(shape)
+            buf.index_copy_(dim, slots.to(g.device), part)
+            collectives.all_reduce(buf, env.tp_group)
+            g.index_copy_(dim, local.to(g.device),
+                          buf.index_select(dim, slots.to(g.device)))
 
 
 def take(full, index: Index):

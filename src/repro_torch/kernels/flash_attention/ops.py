@@ -54,18 +54,18 @@ def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_offset):
+        if q.device.type not in ("cuda", "cpu", "meta"):
+            raise ValueError(f"flash_attention runs on cuda, cpu or meta, "
+                             f"not {q.device}")
         hd = q.shape[-1]
         hd_pad = _padded_hd(hd)
         qt, kt, vt = (_to_kernel_layout(t, hd_pad) for t in (q, k, v))
         if q.device.type == "cuda":
             out = kernel.flash_attention_fwd(qt, kt, vt, q_offset=q_offset,
                                              sm_scale=hd ** -0.5)
-        elif q.device.type == "cpu":
+        else:   # cpu, or meta: a dry run's shapes, which launch nothing
             out = reference_attention(qt, kt, vt, q_offset=q_offset,
                                       sm_scale=hd ** -0.5)
-        else:
-            raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                             f"{q.device}")
         ctx.save_for_backward(q, k, v, q_offset)
         return out[..., :hd].transpose(1, 2)   # back to (B, Sq, H, hd)
 

@@ -30,17 +30,18 @@ from .ref import ssd_reference
 class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, init_state, chunk):
+        if x.device.type not in ("cuda", "cpu", "meta"):
+            raise ValueError(f"ssd_scan runs on cuda, cpu or meta, not "
+                             f"{x.device}")
         args = [t.contiguous() for t in (x, dt, A, B, C)]
         if init_state is not None:
             init_state = init_state.contiguous()
         if x.device.type == "cuda":
             y, state = kernel.ssd_scan_fwd(*args, chunk=chunk,
                                            init_state=init_state)
-        elif x.device.type == "cpu":
+        else:   # cpu, or meta: a dry run's shapes, which launch nothing
             y, state = ssd_reference(*args, chunk=chunk,
                                      init_state=init_state)
-        else:
-            raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
         ctx.save_for_backward(x, dt, A, B, C, init_state)
         ctx.chunk = chunk
         return y, state

@@ -29,8 +29,9 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     mod = encdec if cfg.family == "audio" else transformer
     return ModelApi(
         cfg=cfg,
-        init=lambda gen, device=None, dtype=torch.float32, env=None:
-            mod.init(cfg, gen, device=device, dtype=dtype, env=env),
+        init=lambda gen, device=None, dtype=torch.float32, env=None, \
+        fsdp=False: mod.init(cfg, gen, device=device, dtype=dtype, env=env,
+                             fsdp=fsdp),
         forward=lambda env, params, batch: mod.forward(env, cfg, params,
                                                        batch),
         prefill=lambda env, params, batch, max_len=None: mod.prefill(

@@ -1,27 +1,33 @@
 """Shared model plumbing: the execution environment and the initializers.
 
 Models are plain functions over nested dicts of tensors.  ``Env`` carries
-where and in what precision they run, whether the training forward
-recomputes each layer in its backward, and the distribution context: the
-mesh, the batch axes and the tensor/expert-parallel axis, as the
-reference's ``Env`` does.  Under a mesh each rank holds only its shard of
-the weights and caches (``distributed/sharding.py``) and the model code
-issues its collectives through ``distributed/collectives.py``.  Which
-attention runs is decided by the tensors' device (the CUDA kernel on the
-card, its plain version on the CPU), so there is no kernel switch.
+where and in what precision they run, how the training forward recomputes
+each layer in its backward, and the distribution context: the mesh, the
+batch axes and the tensor/expert-parallel axis, as the reference's ``Env``
+does.  Under a mesh each rank holds only its shard of the weights and
+caches (``distributed/sharding.py``) and the model code issues its
+collectives through ``distributed/collectives.py``; a training forward
+gathers each layer's weights over the batch axes inside the layer's
+checkpointed body (:func:`fsdp_gather`), so the backward gathers them
+again instead of keeping whole layers alive.  Which attention runs is
+decided by the tensors' device (the CUDA kernel on the card, its plain
+version on the CPU and, in a dry run, on meta tensors), so there is no
+kernel switch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
 
+from ..distributed.collectives import gather
 from ..distributed.mesh import Mesh
-from ..distributed.sharding import Index
+from ..distributed.sharding import Index, fsdp_dim
 
 Params = Dict[str, Any]
 DeviceLike = Union[str, torch.device, None]
@@ -44,13 +50,24 @@ class Env:
 
     device: torch.device
     compute_dtype: torch.dtype = torch.bfloat16
-    #: activation checkpointing of each layer body in the training forward,
-    #: with the reference's default policy "nothing": the backward recomputes
-    #: the whole body from its input
+    #: activation checkpointing of each layer body in the training forward
     remat: bool = True
     mesh: Optional[Mesh] = None
     batch_axes: Tuple[str, ...] = ()     # e.g. ("pod", "data")
     tp_axis: Optional[str] = None        # tensor/expert-parallel axis
+    #: under a tp axis that divides the sequence, the training forward keeps
+    #: the residual stream split over tp along the sequence (Megatron's
+    #: sequence parallelism): a reduce-scatter in place of each row-parallel
+    #: all-reduce, an all-gather before each column-parallel input
+    seq_shard_activations: bool = False
+    #: query chunk of the plain attention (0: whole), each chunk
+    #: checkpointed: the path the flash kernel does not take
+    attn_q_chunk: int = 0
+    #: what a checkpointed body keeps for its backward: "nothing" (the
+    #: reference's default: recompute the whole body) or "dots" (keep the
+    #: outputs of matrix products without batch dimensions, the
+    #: reference's ``dots_with_no_batch_dims_saveable``)
+    remat_policy: str = "nothing"
 
     @property
     def dp(self) -> int:
@@ -88,30 +105,109 @@ class Env:
         return self.mesh.group(self.tp_axis)
 
 
-def check_unsharded_training(env: Env) -> None:
-    """The training forward is not sharded yet (ROADMAP.md Queue 1, item
-    9): the port's collectives carry no gradient, so a forward under a
-    mesh with grad on is refused rather than differentiated wrongly."""
-    if env.mesh is not None and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "training under a mesh is not ported yet (ROADMAP.md Queue 1, "
-            "item 9); run the forward under torch.no_grad() or without a "
-            "mesh")
-
-
 def default_env(device: DeviceLike = None,
                 compute_dtype: torch.dtype = torch.bfloat16) -> Env:
     return Env(resolve_device(device), compute_dtype)
 
 
+#: the matrix products without batch dimensions that ``remat_policy="dots"``
+#: keeps (``F.linear`` reaches one of these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def checkpointed(env: Env, body: Callable, *args):
+    """``body(*args)`` checkpointed under ``env.remat_policy``: "nothing"
+    keeps only the inputs (the reference's ``nothing_saveable``), "dots"
+    also the outputs of ``mm``/``addmm``."""
+    if env.remat_policy == "dots":
+        return torch.utils.checkpoint.checkpoint(
+            body, *args, use_reentrant=False, context_fn=_dots_context)
+    if env.remat_policy != "nothing":
+        raise ValueError(f"remat_policy is nothing or dots, not "
+                         f"{env.remat_policy!r}")
+    return torch.utils.checkpoint.checkpoint(body, *args,
+                                             use_reentrant=False)
+
+
 def layer_call(env: Env, body: Callable, *args):
-    """``body(*args)``, checkpointed when ``env.remat``: only the layer's
-    inputs are kept for the backward, which runs the body once more (the
-    reference's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    """``body(*args)``, checkpointed when ``env.remat`` and grad is on
+    (:func:`checkpointed`): the backward runs the body once more, its
+    weight gathers included."""
     if env.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(body, *args,
-                                                 use_reentrant=False)
+        return checkpointed(env, body, *args)
     return body(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def full_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Path (keys joined by ``/``) -> full shape of every leaf of ``cfg``'s
+    params, from an init on meta tensors (shapes only)."""
+    from .api import get_model
+    out: Dict[str, Tuple[int, ...]] = {}
+
+    def walk(tree, prefix: str) -> None:
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, f"{prefix}/{i}")
+        else:
+            out[prefix] = tuple(tree.shape)
+    walk(get_model(cfg).init(torch.Generator(), device="meta"), "")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _fsdp_dims(cfg, mesh: Mesh, batch_axes: Tuple[str, ...]
+               ) -> Dict[str, Tuple[int, int]]:
+    """Path -> (dimension, full size) of every leaf training splits over
+    the batch axes."""
+    out: Dict[str, Tuple[int, int]] = {}
+    for path, shape in full_shapes(cfg).items():
+        dim = fsdp_dim(mesh, batch_axes, path, shape)
+        if dim is not None:
+            out[path] = (dim, shape[dim])
+    return out
+
+
+def fsdp_gather(env: Env, cfg, tree, prefix: str, skip: Sequence[str] = ()):
+    """``tree`` (the params at ``prefix``) with every leaf that training
+    splits over the batch axes all-gathered whole (``collectives.gather``:
+    the backward reduce-scatters its gradient, the batch axes' sum).  A
+    leaf already whole (serving's layout, one batch rank) is as it is;
+    the leaves at the paths in ``skip`` (relative to ``prefix``) are left
+    out."""
+    if env.mesh is None or env.dp == 1:
+        return tree
+    dims = _fsdp_dims(cfg, env.mesh, tuple(env.batch_axes))
+    group = env.mesh.group(tuple(env.batch_axes))
+
+    def walk(node, rel: str):
+        path = f"{prefix}/{rel}" if prefix and rel else (prefix or rel)
+        if isinstance(node, dict):
+            return {k: walk(v, f"{rel}/{k}" if rel else k)
+                    for k, v in node.items()
+                    if (f"{rel}/{k}" if rel else k) not in skip}
+        if isinstance(node, list):
+            return [walk(v, f"{rel}/{i}" if rel else str(i))
+                    for i, v in enumerate(node)]
+        where = dims.get(path)
+        if where is None or node.shape[where[0]] == where[1]:
+            return node
+        return gather(node, group, where[0])
+    return walk(tree, "")
 
 
 # ---------------------------------------------------------------------------

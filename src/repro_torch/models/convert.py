@@ -16,7 +16,7 @@ before it is converted, so a rank never holds another rank's part.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,7 +47,8 @@ def reference_last_axis(path: str, leaf: torch.Tensor) -> int:
 def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig, *,
                     device: torch.device, dtype: torch.dtype,
                     mesh: Optional[Mesh] = None,
-                    coords: Optional[Dict[str, int]] = None) -> Params:
+                    coords: Optional[Dict[str, int]] = None,
+                    batch_axes: Sequence[str] = ()) -> Params:
     """``np_params``: the reference's tree as numpy arrays.  The decoder's:
     ``embed`` (V, D), ``blocks`` stacked on a leading L axis (dense, vlm:
     ``{ln1, ln2, attn.{wq,wk,wv,wo[,bq,bk,bv]}, mlp.{wg,wu,wd}}``; moe:
@@ -58,7 +59,8 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig, *,
     ``pos_embed``, ``enc_blocks`` and ``dec_blocks`` stacked, ``enc_norm``,
     ``dec_norm``.  Returns the port's params on ``device`` in ``dtype``:
     under ``mesh``, the shard of the rank at ``coords`` (default: the
-    mesh's own rank)."""
+    mesh's own rank); with ``batch_axes``, training's layout (also split
+    over them)."""
     def t(a: np.ndarray) -> np.ndarray:
         return np.asarray(a)
 
@@ -66,7 +68,8 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig, *,
         return np.swapaxes(a, -1, -2)           # (in, out) -> (out, in)
 
     def place(path: str, a: np.ndarray) -> torch.Tensor:
-        a = take(a, local_index(cfg, mesh, path, a.shape, coords))
+        a = take(a, local_index(cfg, mesh, path, a.shape, coords,
+                                batch_axes=batch_axes))
         # through fp32, which holds bf16 and int8 values exactly
         return torch.from_numpy(np.array(a, np.float32)).to(
             device=device, dtype=dtype)

@@ -25,19 +25,28 @@ prefill computes once from the encoder.  Params: ``embed``, ``pos_embed``,
 Under a mesh the entry points work on this rank's shard as
 ``transformer.py``'s do: attention on local heads (the cross-attention's
 K/V are the rank's KV heads), the GELU MLPs column- then row-parallel, the
-tied vocabulary split over tp where it divides.
+tied vocabulary split over tp where it divides; ``forward`` takes the
+training layout and gathers each layer's weights over the batch axes in
+its body (the cross-attention's K/V weights where all layers' K/V are
+projected at once).  Sequence parallelism
+(``Env.seq_shard_activations``) is not applied here: the encoder's states
+feed every decoder layer's cross-attention whole, so the residual streams
+stay whole, as with the knob off.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+import dataclasses
+
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.collectives import copy_to
 from ..distributed.sharding import local_batch
-from .common import (Env, check_unsharded_training, embed_init, layer_call,
-                     leaf, ones, resolve_device, under, zeros)
+from .common import (Env, embed_init, fsdp_gather, layer_call, leaf, ones,
+                     resolve_device, under, zeros)
 from .layers import (_linear, attention_block, embed, gelu_mlp,
                      init_attention, init_gelu_mlp, layer_norm, lm_head)
 from .transformer import local_zeros, shard_kw
@@ -83,11 +92,11 @@ def _init_dec_layer(cfg: ModelConfig, gen: torch.Generator,
 def init(cfg: ModelConfig, gen: torch.Generator, *,
          device: Optional[torch.device] = None,
          dtype: torch.dtype = torch.float32,
-         env: Optional[Env] = None) -> Params:
+         env: Optional[Env] = None, fsdp: bool = False) -> Params:
     """Random weights from ``gen`` with the reference's distributions
     (LayerNorm scales 1, biases 0); under ``env``'s mesh only this rank's
-    shard of each leaf."""
-    kw = shard_kw(cfg, env, resolve_device(device), dtype)
+    shard of each leaf (with ``fsdp``, the training layout's)."""
+    kw = shard_kw(cfg, env, resolve_device(device), dtype, fsdp)
     D = cfg.d_model
     return {
         "embed": embed_init(gen, (cfg.vocab_size, D), **leaf(kw, "embed")),
@@ -125,14 +134,15 @@ def _encode(env: Env, cfg: ModelConfig, params: Params,
     x = frames.to(env.compute_dtype)
     positions = _positions(x.shape[0], x.shape[1], x.device)
 
-    def body(x, bp):
+    def body(x, bp, i):
+        bp = fsdp_gather(env, cfg, bp, f"enc_blocks/{i}")
         h = _ln(x, bp["ln1"], cfg.norm_eps)
         a, _ = _attend(env, cfg, bp["attn"], h, positions, causal=False)
         x = x + a
         h = _ln(x, bp["ln2"], cfg.norm_eps)
         return x + gelu_mlp(env, bp["mlp"], h, cfg.d_ff)
-    for bp in params["enc_blocks"]:
-        x = layer_call(env, body, x, bp)
+    for i, bp in enumerate(params["enc_blocks"]):
+        x = layer_call(env, body, x, bp, i)
     return _ln(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -146,11 +156,17 @@ def encode(env: Env, cfg: ModelConfig, params: Params,
 def _cross_kv(env: Env, cfg: ModelConfig, dec_blocks: List[Params],
               enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each decoder layer's cross-attention K/V of the encoder output,
-    stacked: (L, B, S_enc, K, hd) x2."""
+    stacked: (L, B, S_enc, K, hd) x2.  Under a mesh the K/V weights are
+    gathered over the batch axes here; where the heads split over tp, the
+    ranks' K/V each add a part to the encoder output's gradient."""
     B, S, _ = enc_out.shape
+    if env.mesh is not None and env.tp_shards(cfg.num_heads):
+        enc_out = copy_to(enc_out, env.tp_group)
     ks, vs = [], []
-    for bp in dec_blocks:
-        ca = bp["cross_attn"]
+    for i, bp in enumerate(dec_blocks):
+        ca = fsdp_gather(env, cfg, bp["cross_attn"],
+                         f"dec_blocks/{i}/cross_attn", skip=("wq", "bq",
+                                                             "wo"))
         shape = (B, S, ca["wk"].shape[0] // cfg.head_dim, cfg.head_dim)
         ks.append(_linear(enc_out, ca["wk"], ca["bk"]).reshape(shape))
         vs.append(_linear(enc_out, ca["wv"], ca["bv"]).reshape(shape))
@@ -181,34 +197,45 @@ def _positions_embed(params: Params, pos: torch.Tensor) -> torch.Tensor:
 
 def _embed_tokens(env: Env, cfg: ModelConfig, params: Params,
                   tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    x = embed(env, params["embed"], tokens, cfg.vocab_size)
-    return x + _positions_embed(params, pos).to(x.dtype)
+    table = fsdp_gather(env, cfg, params["embed"], "embed")
+    x = embed(env, table, tokens, cfg.vocab_size)
+    pos_table = {"pos_embed": fsdp_gather(env, cfg, params["pos_embed"],
+                                          "pos_embed")}
+    return x + _positions_embed(pos_table, pos).to(x.dtype)
 
 
 def _logits(env: Env, cfg: ModelConfig, params: Params,
-            x: torch.Tensor) -> torch.Tensor:
-    return lm_head(env, params["embed"],
-                   _ln(x, params["dec_norm"], cfg.norm_eps), cfg.vocab_size)
+            x: torch.Tensor, gather_vocab: bool = True) -> torch.Tensor:
+    return lm_head(env, fsdp_gather(env, cfg, params["embed"], "embed"),
+                   _ln(x, params["dec_norm"], cfg.norm_eps), cfg.vocab_size,
+                   gather_vocab=gather_vocab)
 
 
 def forward(env: Env, cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced training forward over ``tokens`` with encoder
-    ``frames``; returns (logits (B, S, V), a zero fp32 aux loss)."""
-    check_unsharded_training(env)
+    ``frames`` (the global batch: under a mesh the rank runs its part);
+    returns (logits (B, S, V), a zero fp32 aux loss), the logits the
+    rank's as ``transformer.forward``'s."""
+    if env.seq_shard_activations:
+        env = dataclasses.replace(env, seq_shard_activations=False)
+    batch = local_batch(env, batch)
     enc_out = _encode(env, cfg, params, batch["frames"])
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
     x = _embed_tokens(env, cfg, params, tokens, positions)
     cross_k, cross_v = _cross_kv(env, cfg, params["dec_blocks"], enc_out)
+    cross_weights = ("cross_attn/wk", "cross_attn/wv", "cross_attn/bk",
+                     "cross_attn/bv")
 
-    def body(x, bp, ck, cv):
+    def body(x, bp, i, ck, cv):
+        bp = fsdp_gather(env, cfg, bp, f"dec_blocks/{i}", skip=cross_weights)
         return _dec_block(env, cfg, bp, x, positions, cross=(ck, cv))[0]
     for i, bp in enumerate(params["dec_blocks"]):
-        x = layer_call(env, body, x, bp, cross_k[i], cross_v[i])
-    return (_logits(env, cfg, params, x),
+        x = layer_call(env, body, x, bp, i, cross_k[i], cross_v[i])
+    return (_logits(env, cfg, params, x, gather_vocab=False),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

@@ -15,8 +15,13 @@ the KV heads they read, and the flash kernel runs on those local heads;
 column-parallel up and row-parallel down, with one all-reduce (whisper's
 ``b2`` is added after it).  Where the vocab divides the width, the
 embedding is a masked lookup plus an all-reduce and the head's sharded
-logits are all-gathered for sampling; elsewhere both replicate.  Every
-collective goes through ``distributed/collectives.py``.
+logits are all-gathered for sampling (a training forward keeps them
+sharded for the loss's vocab-parallel softmax); elsewhere both replicate.
+Every collective goes through ``distributed/collectives.py``, in the
+differentiable forms a training backward needs (:func:`tp_enter`,
+:func:`tp_exit`: Megatron's f and g, or, with ``env.seq_shard_activations``,
+an all-gather along the sequence into each sublayer and a reduce-scatter
+out of it).
 """
 
 from __future__ import annotations
@@ -26,13 +31,52 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import all_gather, all_reduce
+from ..distributed.collectives import (copy_to, gather,
+                                       gather_from, reduce_from, scatter_sum,
+                                       split_to)
 from ..distributed.sharding import kv_heads, kv_map
 from ..kernels.flash_attention.ops import flash_attention
-from .common import Env, dense_init, leaf, zeros
+from .common import Env, checkpointed, dense_init, leaf, zeros
 
 Params = Dict[str, Any]
 KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Entering and leaving a tensor-parallel sublayer
+# ---------------------------------------------------------------------------
+
+def seq_parallel(env: Env) -> bool:
+    """Whether the residual stream is split over tp along the sequence
+    (the forward sets ``seq_shard_activations`` only where it applies)."""
+    return env.seq_shard_activations and env.mesh is not None and \
+        env.tp_axis is not None
+
+
+def tp_enter(env: Env, x: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """A sublayer's input.  ``sharded``: the sublayer splits over tp (its
+    ranks compute different parts of the input's gradient).  Under
+    sequence parallelism the rank's block of the sequence is gathered
+    whole first."""
+    if seq_parallel(env):
+        return (gather if sharded else gather_from)(x, env.tp_group, 1)
+    return copy_to(x, env.tp_group) if sharded else x
+
+
+def tp_exit(env: Env, y: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """A sublayer's output: the sum of a sharded sublayer's partial
+    outputs over tp (under sequence parallelism, the rank's block of the
+    sequence of that sum)."""
+    if seq_parallel(env):
+        return (scatter_sum if sharded else split_to)(y, env.tp_group, 1)
+    return reduce_from(y, env.tp_group) if sharded else y
+
+
+def replicated_weight(env: Env, w: torch.Tensor) -> torch.Tensor:
+    """A weight kept whole on every tp rank but applied, under sequence
+    parallelism, to each rank's own tokens: its gradient is summed over
+    tp (a norm gain)."""
+    return copy_to(w, env.tp_group) if seq_parallel(env) else w
 
 
 # ---------------------------------------------------------------------------
@@ -110,10 +154,33 @@ def _mha(env: Env, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_offset``: (B,) absolute position of q[:,0].  ``kv_len``: (B,) valid
     KV length (continuous batching).  Causal attention over more than one
-    query goes to the flash kernel; the rest (decode) is plain tensor code.
+    query goes to the flash kernel; the rest (decode, the encoder) is plain
+    tensor code, as is everything on meta tensors (a dry run, which
+    launches no kernel, as the reference's dry run lowers no Pallas).  With
+    ``env.attn_q_chunk`` the plain attention runs query chunk by query
+    chunk, each checkpointed under grad (the reference's scan over chunks
+    with ``jax.checkpoint``): the live score tensor shrinks by the chunk
+    factor, and the result is exact.
     """
-    if causal and q.shape[1] > 1:
+    if causal and q.shape[1] > 1 and q.device.type != "meta":
         return flash_attention(q, k, v, q_offset=q_offset)
+    cq = env.attn_q_chunk
+    B, Sq = q.shape[:2]
+    if cq and Sq > cq and Sq % cq == 0:
+        base = (q_offset if q_offset is not None else
+                torch.zeros((B,), dtype=torch.long, device=q.device))
+
+        def chunk(qb, offset):
+            return _mha_dense(env, qb, k, v, causal=causal, q_offset=offset,
+                              kv_len=kv_len)
+        outs = []
+        for i in range(Sq // cq):
+            qb = q[:, i * cq:(i + 1) * cq]
+            if torch.is_grad_enabled():
+                outs.append(checkpointed(env, chunk, qb, base + i * cq))
+            else:
+                outs.append(chunk(qb, base + i * cq))
+        return torch.cat(outs, dim=1)
     return _mha_dense(env, q, k, v, causal=causal, q_offset=q_offset,
                       kv_len=kv_len)
 
@@ -174,9 +241,10 @@ def attention_block(env: Env, p: Params, x: torch.Tensor, *, num_heads: int,
     ``num_heads``/``num_kv_heads`` are the model's; under a tp mesh the
     block runs its rank's local heads (the caches hold its KV heads).
     """
-    B, Sq, _ = x.shape
     H, K, hd = num_heads, num_kv_heads, head_dim
     shard = env.tp_shards(H)
+    x = tp_enter(env, x, shard)
+    B, Sq, _ = x.shape
     kv_index = None
     if shard:
         _, K = kv_heads(H, K, env.tp, env.tp_rank, True)
@@ -193,8 +261,8 @@ def attention_block(env: Env, p: Params, x: torch.Tensor, *, num_heads: int,
         return _mha(env, q, k, v, **kw)
 
     def project(out):
-        out = _linear(out.reshape(B, Sq, H * hd), p["wo"])
-        return all_reduce(out, env.tp_group) if shard else out
+        return tp_exit(env, _linear(out.reshape(B, Sq, H * hd), p["wo"]),
+                       shard)
 
     if cross_kv is not None:
         k, v = cross_kv
@@ -247,11 +315,12 @@ def _row_parallel(env: Env, d_ff: Optional[int]) -> bool:
 def swiglu(env: Env, p: Params, x: torch.Tensor,
            d_ff: Optional[int] = None) -> torch.Tensor:
     """``d_ff``: the full hidden width (needed under a mesh)."""
+    split = _row_parallel(env, d_ff)
+    x = tp_enter(env, x, split)
     g = _linear(x, p["wg"])
     u = _linear(x, p["wu"])
     h = F.silu(g.float()).to(x.dtype) * u
-    out = _linear(h, p["wd"])
-    return all_reduce(out, env.tp_group) if _row_parallel(env, d_ff) else out
+    return tp_exit(env, _linear(h, p["wd"]), split)
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
@@ -267,11 +336,13 @@ def gelu_mlp(env: Env, p: Params, x: torch.Tensor,
     """fc1 -> GELU -> fc2 with biases (whisper); the GELU is the reference's
     ``jax.nn.gelu``, whose default is the tanh approximation.  ``d_ff``:
     the full hidden width (needed under a mesh)."""
+    split = _row_parallel(env, d_ff)
+    x = tp_enter(env, x, split)
     h = _linear(x, p["w1"], p["b1"])
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    if not _row_parallel(env, d_ff):
-        return _linear(h, p["w2"], p["b2"])
-    out = all_reduce(_linear(h, p["w2"]), env.tp_group)
+    if not split:
+        return tp_exit(env, _linear(h, p["w2"], p["b2"]), False)
+    out = tp_exit(env, _linear(h, p["w2"]), True)
     return out + p["b2"].to(out.dtype)
 
 
@@ -291,15 +362,26 @@ def embed(env: Env, table: torch.Tensor, tokens: torch.Tensor,
     inside = (local >= 0) & (local < rows)
     out = table[local.clamp(0, rows - 1)].to(env.compute_dtype)
     out = torch.where(inside[..., None], out, torch.zeros_like(out))
-    return all_reduce(out, env.tp_group)
+    return reduce_from(out, env.tp_group)
+
+
+def vocab_parallel(env: Env, vocab: Optional[int]) -> bool:
+    """Whether a training forward's logits stay split over tp by vocabulary
+    (more than one tp rank, and the vocabulary divides them)."""
+    return vocab is not None and env.tp > 1 and env.tp_shards(vocab)
 
 
 def lm_head(env: Env, table_or_w: torch.Tensor, x: torch.Tensor,
-            vocab: Optional[int] = None) -> torch.Tensor:
+            vocab: Optional[int] = None, *,
+            gather_vocab: bool = True) -> torch.Tensor:
     """Logits from a (V, D) matrix: the embedding table when embeddings are
     tied, else the head converted to (out, in) layout.  Where ``vocab``
-    splits over tp, each rank's (V/tp) logits are all-gathered."""
+    splits over tp, each rank's (V/tp) logits are all-gathered, unless
+    ``gather_vocab`` is off (a training forward: :func:`vocab_parallel`
+    logits stay this rank's, for the loss's vocab-parallel softmax)."""
+    sharded = vocab is not None and env.tp_shards(vocab)
+    x = tp_enter(env, x, sharded)
     logits = _linear(x, table_or_w)
-    if vocab is None or not env.tp_shards(vocab):
+    if not sharded or not gather_vocab:
         return logits
-    return all_gather(logits, env.tp_group, dim=-1)
+    return gather_from(logits, env.tp_group, dim=-1)

@@ -31,10 +31,23 @@ through ``distributed/collectives.py``:
   an all-gather over tp rebuilds the sequence;
 * token-replicated (decode): every rank routes all the tokens, runs its
   experts' slice of the dispatch buffer, and an all-reduce sums the
-  buffers.
+  buffers;
+* a tp width of 1 with more than one batch rank: the reference runs no
+  ``shard_map`` there, so its routing is global: each rank routes its own
+  tokens, an all-gather of the assignments over the batch axes gives every
+  rank the global sort and capacity, the rank keeps its own assignments'
+  decisions, and the aux loss is the global one (its fractions all-reduced
+  over the batch axes).
 
 The aux loss is averaged over the batch and tp axes (the reference's
-``pmean``); the shared SwiGLU is tensor-parallel like any MLP.
+``pmean``); the shared SwiGLU is tensor-parallel like any MLP.  Under
+grad the collectives are the differentiable ones of
+``distributed/collectives.py``: the rank's block of the sequence is a
+``split_to`` and the rebuilt sequence a ``gather_from``, the exchanges
+``exchange`` (their own inverse), and the router's gradient is summed over
+tp where the tp ranks route different tokens.  Under sequence
+parallelism (``layers.seq_parallel``) the rank's tokens are already its
+block of the sequence and stay so.
 """
 
 from __future__ import annotations
@@ -45,9 +58,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import all_gather, all_reduce, all_to_all
+from ..distributed.collectives import (all_gather, all_reduce, copy_to,
+                                       exchange, gather_from, reduce_from,
+                                       split_to)
 from .common import Env, dense_init, leaf, under
-from .layers import init_swiglu, swiglu
+from .layers import init_swiglu, seq_parallel, swiglu
 
 Params = Dict[str, Any]
 
@@ -82,6 +97,21 @@ def _route(xf: torch.Tensor, router: torch.Tensor, k: int
     return probs, top_w / top_w.sum(dim=-1, keepdim=True), top_ids
 
 
+def _sorted_positions(ids: torch.Tensor, num_experts: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(order, sorted ids, position within its expert) of the assignments
+    ``ids`` stably sorted by expert: earlier assignments come first."""
+    order = torch.argsort(ids, stable=True)
+    sorted_ids = ids[order]
+    # a static-shape count (``bincount`` has no meta kernel for a dry run)
+    counts = torch.zeros(num_experts, dtype=ids.dtype,
+                         device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+    offsets = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(ids.shape[0], device=ids.device) - offsets[sorted_ids]
+    return order, sorted_ids, pos
+
+
 def _dispatch_local(x_flat: torch.Tensor, ids: torch.Tensor, capacity: int,
                     num_experts: int, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -94,11 +124,7 @@ def _dispatch_local(x_flat: torch.Tensor, ids: torch.Tensor, capacity: int,
     """
     nk = ids.shape[0]
     d = x_flat.shape[-1]
-    order = torch.argsort(ids, stable=True)
-    sorted_ids = ids[order]
-    counts = torch.bincount(ids, minlength=num_experts)
-    offsets = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(nk, device=ids.device) - offsets[sorted_ids]
+    order, sorted_ids, pos = _sorted_positions(ids, num_experts)
     valid_sorted = pos < capacity
     flat_slot_sorted = torch.where(valid_sorted, sorted_ids * capacity + pos,
                                    num_experts * capacity)
@@ -122,45 +148,86 @@ def _expert_ffn(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return torch.bmm(h, wd.to(dtype))
 
 
+def _global_valid(env: Env, ids: torch.Tensor, n_global: int, k: int,
+                  num_experts: int, capacity_factor: float) -> torch.Tensor:
+    """Which of this rank's assignments ``ids`` (token-major) find room
+    when the batch ranks' assignments are sorted together, as one device
+    routes the global batch: the all-gathered assignments in rank order
+    are the global ones in token order."""
+    every = all_gather(ids, env.mesh.group(tuple(env.batch_axes)))
+    capacity = max(int(math.ceil(n_global * k * capacity_factor
+                                 / num_experts)), 1)
+    order, _, sorted_pos = _sorted_positions(every, num_experts)
+    pos = torch.empty_like(every)
+    pos[order] = sorted_pos
+    at = env.mesh.index(tuple(env.batch_axes)) * ids.shape[0]
+    return pos[at:at + ids.shape[0]] < capacity
+
+
 def _moe_local(env: Env, x: torch.Tensor, p: Params, *, k: int,
                num_experts: int, capacity_factor: float,
-               token_replicated: bool = False
+               token_replicated: bool = False, global_batch: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank's MoE body (the reference's, run per shard): x (B, S, D)
     its tokens; ``p``'s experts its E/tp.  Returns (y, the Switch
-    load-balance aux loss of its tokens)."""
+    load-balance aux loss of its tokens).  ``global_batch``: the rank's
+    tokens are its block of a batch routed globally (tp 1 under a mesh);
+    the aux loss is then the global one."""
     B, S, D = x.shape
     N = B * S
     xf = x.reshape(N, D)
-    probs, top_w, top_ids = _route(xf, p["router"], k)
-    frac_tokens = F.one_hot(top_ids[:, 0], num_experts).float().mean(dim=0)
-    frac_probs = probs.mean(dim=0)
-    aux = num_experts * torch.sum(frac_tokens * frac_probs)
-
+    router = p["router"]
+    if env.mesh is not None and not token_replicated and not global_batch:
+        router = copy_to(router, env.tp_group)   # tp ranks: other tokens
+    probs, top_w, top_ids = _route(xf, router, k)
     ids = top_ids.reshape(-1)                                  # (N*k,)
-    capacity = max(int(math.ceil(N * k * capacity_factor / num_experts)), 1)
-    buf, slot, valid = _dispatch_local(xf, ids, capacity, num_experts, k)
-    if env.mesh is None:
+    if global_batch:
+        group = env.mesh.group(tuple(env.batch_axes))
+        n_global = N * env.dp
+        top1 = all_reduce(F.one_hot(top_ids[:, 0], num_experts).float()
+                          .sum(dim=0), group)
+        frac_probs = reduce_from(probs.sum(dim=0), group) / n_global
+        aux = num_experts * torch.sum(top1 / n_global * frac_probs)
+        room = _global_valid(env, ids, n_global, k, num_experts,
+                             capacity_factor)
+        # the rank's own assignments that found room, in a buffer of its
+        # own (an expert's output does not depend on its slot)
+        capacity = min(max(int(math.ceil(n_global * k * capacity_factor
+                                         / num_experts)), 1), N * k)
+        kept = torch.where(room, ids, num_experts)
+        buf, slot, valid = _dispatch_local(xf, kept, capacity,
+                                           num_experts + 1, k)
+        buf = buf[:num_experts]
+        valid = valid & room
+    else:
+        frac_tokens = F.one_hot(top_ids[:, 0],
+                                num_experts).float().mean(dim=0)
+        aux = num_experts * torch.sum(frac_tokens * probs.mean(dim=0))
+        capacity = max(int(math.ceil(N * k * capacity_factor
+                                     / num_experts)), 1)
+        xd = copy_to(xf, env.tp_group) if token_replicated else xf
+        buf, slot, valid = _dispatch_local(xd, ids, capacity, num_experts, k)
+    if env.mesh is None or global_batch:
         y_buf = _expert_ffn(buf, p["wg"], p["wu"], p["wd"])
     elif token_replicated:
         # every rank holds every token: run this rank's experts' slice of
         # the buffer; an all-reduce puts the slices together
         e_local = p["wg"].shape[0]
         lo = env.tp_rank * e_local
-        y_buf = torch.zeros_like(buf)
-        y_buf[lo:lo + e_local] = _expert_ffn(buf[lo:lo + e_local], p["wg"],
-                                             p["wu"], p["wd"])
-        y_buf = all_reduce(y_buf, env.tp_group)
+        mine = _expert_ffn(buf[lo:lo + e_local], p["wg"], p["wu"], p["wd"])
+        y_buf = torch.cat([buf.new_zeros((lo,) + buf.shape[1:]), mine,
+                           buf.new_zeros((buf.shape[0] - lo - e_local,)
+                                         + buf.shape[1:])])
+        y_buf = reduce_from(y_buf, env.tp_group)
     else:
         tp, e_local = env.tp, p["wg"].shape[0]
         # (E, C, D) -> (tp, E_l, C, D) -> exchange -> rows for MY experts
-        recv = all_to_all(buf.reshape(tp, e_local, capacity, D),
-                          env.tp_group)
+        recv = exchange(buf.reshape(tp, e_local, capacity, D), env.tp_group)
         work = recv.transpose(0, 1).reshape(e_local, tp * capacity, D)
         y_work = _expert_ffn(work, p["wg"], p["wu"], p["wd"])
         back = y_work.reshape(e_local, tp, capacity, D).transpose(0, 1)
-        y_buf = all_to_all(back, env.tp_group).reshape(num_experts,
-                                                       capacity, D)
+        y_buf = exchange(back, env.tp_group).reshape(num_experts,
+                                                     capacity, D)
 
     # gather processed assignments and combine with routing weights
     y_flat = y_buf.reshape(num_experts * capacity, D)
@@ -182,24 +249,26 @@ def moe_ffn(env: Env, p: Params, x: torch.Tensor, *, num_experts: int,
               capacity_factor=capacity_factor)
     if env.mesh is None:
         y, aux = _moe_local(env, x, p, **kw)
+    elif env.tp == 1 and env.dp > 1:
+        y, aux = _moe_local(env, x, p, global_batch=True, **kw)
     else:
-        tp, r = env.tp, env.tp_rank
+        tp = env.tp
         if num_experts % tp:
             raise ValueError(f"{num_experts} experts do not divide over "
                              f"tp {tp}")
         S = x.shape[1]
         # prefill subdivides the sequence over the model axis (GShard);
         # decode (seq 1) replicates tokens and splits by expert rank
-        token_parallel = S % tp == 0
-        if token_parallel:
-            s_l = S // tp
-            y, aux = _moe_local(env, x[:, r * s_l:(r + 1) * s_l], p, **kw)
-            y = all_gather(y, env.tp_group, dim=1)
+        if seq_parallel(env):       # the rank's block of the sequence
+            y, aux = _moe_local(env, x, p, **kw)
+        elif S % tp == 0:
+            y, aux = _moe_local(env, split_to(x, env.tp_group, 1), p, **kw)
+            y = gather_from(y, env.tp_group, 1)
         else:
             y, aux = _moe_local(env, x, p, token_replicated=True, **kw)
         axes = tuple(env.batch_axes) + (env.tp_axis,)
-        aux = all_reduce(aux.reshape(1).clone(),
-                         env.mesh.group(axes))[0] / env.mesh.axis_size(axes)
+        aux = reduce_from(aux.reshape(1), env.mesh.group(axes))[0] \
+            / env.mesh.axis_size(axes)
     if "shared" in p:
         y = y + swiglu(env, p["shared"], x, shared_d_ff)
     return y, aux

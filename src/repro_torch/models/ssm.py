@@ -14,7 +14,11 @@ heads' rows of ``z``, ``x`` and ``dt`` in ``in_proj`` and all of ``B`` and
 ``C`` (one group, shared by every head), the conv over its ``x`` channels
 and all of ``B`` and ``C``.  The SSD kernel runs on the local heads; the
 gated RMS norm sums its squares over tp with one all-reduce, and the
-row-parallel ``out_proj`` ends in another.
+row-parallel ``out_proj`` ends in another.  In a training backward the
+block's input and the summed squares take the all-reduce of their
+gradients that the ranks' heads each add a part to (``layers.tp_enter``,
+``collectives.copy_to``); the replicated ``B``/``C`` rows sum their
+gradients by the rule of ``distributed/sharding.py``.
 """
 
 from __future__ import annotations
@@ -25,10 +29,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.collectives import all_reduce
+from ..distributed.collectives import copy_to, reduce_from
 from ..kernels.ssd_scan.ops import ssd_scan
 from .common import Env, const, dense_init, leaf, ones, zeros
-from .layers import _linear, rms_norm
+from .layers import _linear, rms_norm, tp_enter, tp_exit
 
 Params = Dict[str, Any]
 
@@ -113,6 +117,7 @@ def ssm_block(env: Env, p: Params, x: torch.Tensor, cfg, *,
     shard = env.tp_shards(H)
     if shard:                                 # this rank's block of heads
         H //= env.tp
+    x = tp_enter(env, x, shard)
     d_in = H * hd
     Bt, S, _ = x.shape
     proj = _linear(x, p["in_proj"])
@@ -149,9 +154,7 @@ def ssm_block(env: Env, p: Params, x: torch.Tensor, cfg, *,
     else:
         y = rms_norm(y, p["norm"], cfg.norm_eps)
     y = y * F.silu(z.float()).to(x.dtype)
-    out = _linear(y, p["out_proj"])
-    if shard:
-        out = all_reduce(out, env.tp_group)
+    out = tp_exit(env, _linear(y, p["out_proj"]), shard)
     return out, (final_state, new_conv_state)
 
 
@@ -160,6 +163,8 @@ def _rms_norm_over_tp(env: Env, y: torch.Tensor, scale: torch.Tensor,
     """``layers.rms_norm`` of a row split over tp: each rank's channels of
     the full ``width``, its squares summed by an all-reduce."""
     yf = y.float()
-    sq = all_reduce(yf.square().sum(dim=-1, keepdim=True), env.tp_group)
+    # every rank's channels read the sum: its gradient is summed too
+    sq = copy_to(reduce_from(yf.square().sum(dim=-1, keepdim=True),
+                             env.tp_group), env.tp_group)
     out = yf * torch.rsqrt(sq / width + eps)
     return (out * (1.0 + scale.float())).to(y.dtype)

@@ -26,25 +26,35 @@ when ``env.remat``.  The audio family is ``models/encdec.py``'s.
 
 Under a mesh (``env.mesh``) every entry point works on this rank's shard:
 ``init(..., env=env)`` draws only the rank's part of each leaf
-(``distributed/sharding.py`` ``local_index``), equal to the same part of
-the one-device init; ``init_cache`` allocates the rank's part of each entry
-(the counterpart of the reference's ``shard_cache``); ``prefill`` and
-``decode_step`` take the global batch, run the rank's part of it over the
-batch axes, and return the rank's logits (the whole vocabulary) and cache.
+(``distributed/sharding.py`` ``local_index``; with ``fsdp=True`` the
+training layout, also split over the batch axes), equal to the same part
+of the one-device init; ``init_cache`` allocates the rank's part of each
+entry (the counterpart of the reference's ``shard_cache``); ``prefill`` and
+``decode_step`` take the global batch and serving's layout, run the rank's
+part of the batch over the batch axes, and return the rank's logits (the
+whole vocabulary) and cache.  ``forward`` takes the global batch and the
+training layout: each layer's body all-gathers its weights over the batch
+axes (``common.fsdp_gather``), and it returns the rank's logits, split
+over tp by vocabulary where ``layers.vocab_parallel`` says so, for the
+loss's vocab-parallel softmax.  With ``env.seq_shard_activations`` (and a
+sequence that divides tp) the residual stream between sublayers is the
+rank's block of the sequence.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.collectives import split_to
 from ..distributed.sharding import local_batch, local_cache_index, local_index
-from .common import (Env, check_unsharded_training, dense_init, embed_init,
-                     layer_call, leaf, resolve_device, under, zeros)
+from .common import (Env, dense_init, embed_init, fsdp_gather, layer_call,
+                     leaf, resolve_device, under, zeros)
 from .layers import (attention_block, embed, init_attention, init_swiglu,
-                     lm_head, rms_norm, swiglu)
+                     lm_head, replicated_weight, rms_norm, swiglu)
 from .moe import init_moe, moe_ffn
 from .ssm import init_ssm, ssm_block, ssm_dims
 
@@ -84,29 +94,32 @@ def _init_attn_ffn(cfg: ModelConfig, gen: torch.Generator,
 
 
 def shard_kw(cfg: ModelConfig, env: Optional[Env], device: torch.device,
-             dtype: torch.dtype) -> Dict[str, Any]:
+             dtype: torch.dtype, fsdp: bool = False) -> Dict[str, Any]:
     """An initializer's keywords: under a mesh, with the rank's
-    ``local_index`` of every leaf (``common.leaf``)."""
+    ``local_index`` of every leaf (``common.leaf``); ``fsdp``: the
+    training layout (also split over the batch axes)."""
     kw: Dict[str, Any] = dict(device=device, dtype=dtype)
     if env is not None and env.mesh is not None:
+        batch = tuple(env.batch_axes) if fsdp else ()
         kw.update(prefix="", shard=lambda path, shape: local_index(
-            cfg, env.mesh, path, shape))
+            cfg, env.mesh, path, shape, batch_axes=batch))
     return kw
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, *,
          device: Optional[torch.device] = None,
          dtype: torch.dtype = torch.float32,
-         env: Optional[Env] = None) -> Params:
+         env: Optional[Env] = None, fsdp: bool = False) -> Params:
     """Random weights from ``gen`` with the reference's distributions:
     truncated normal / sqrt(fan_in) for projections, normal x 0.02 for the
     embedding, zeros for the (1 + scale) norm gains, the reference's
     ``A_log``/``D``/``dt_bias`` for Mamba2 blocks.  Under ``env``'s mesh,
-    only this rank's shard of each leaf is drawn."""
+    only this rank's shard of each leaf is drawn (with ``fsdp``, the
+    training layout's)."""
     _check_family(cfg)
     dev = resolve_device(device)
     D, V = cfg.d_model, cfg.vocab_size
-    kw = shard_kw(cfg, env, dev, dtype)
+    kw = shard_kw(cfg, env, dev, dtype, fsdp)
     p: Params = {"embed": embed_init(gen, (V, D), **leaf(kw, "embed")),
                  "blocks": []}
     for i in range(cfg.num_layers):
@@ -139,14 +152,14 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
     weight-shared block (the reference's ``_shared_block``).  Returns
     (x, aux, new_kv): ``aux`` is the MoE layer's load-balance loss (None
     for a SwiGLU block), which serving drops and ``forward`` averages."""
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    h = rms_norm(x, replicated_weight(env, bp["ln1"]), cfg.norm_eps)
     a, new_kv = attention_block(
         env, bp["attn"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         rope_theta=cfg.rope_theta, positions=positions,
         kv_cache=kv_cache, kv_len=kv_len)
     x = x + a
-    h = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    h = rms_norm(x, replicated_weight(env, bp["ln2"]), cfg.norm_eps)
     if cfg.family == "moe":
         f, aux = moe_ffn(env, bp["moe"], h, num_experts=cfg.num_experts,
                          experts_per_token=cfg.experts_per_token,
@@ -158,10 +171,28 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
 
 
 def _logits(env: Env, cfg: ModelConfig, params: Params,
-            x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    table = params["embed"] if cfg.tie_embeddings else params["head"]
-    return lm_head(env, table, x, cfg.vocab_size)
+            x: torch.Tensor, gather_vocab: bool = True) -> torch.Tensor:
+    x = rms_norm(x, replicated_weight(env, params["final_norm"]),
+                 cfg.norm_eps)
+    name = "embed" if cfg.tie_embeddings else "head"
+    table = fsdp_gather(env, cfg, params[name], name)
+    return lm_head(env, table, x, cfg.vocab_size, gather_vocab=gather_vocab)
+
+
+def _serving(env: Env) -> Env:
+    """Serving keeps the residual stream whole."""
+    return (dataclasses.replace(env, seq_shard_activations=False)
+            if env.seq_shard_activations else env)
+
+
+def training_env(env: Env, seq_len: int) -> Env:
+    """``env`` for a training forward over ``seq_len`` tokens: sequence
+    parallelism only where a tp axis divides the sequence."""
+    if env.seq_shard_activations and not (
+            env.mesh is not None and env.tp_axis is not None
+            and seq_len % env.tp == 0):
+        return dataclasses.replace(env, seq_shard_activations=False)
+    return env
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +203,8 @@ def _embed_prompt(env: Env, cfg: ModelConfig, params: Params,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token embeddings; vlm's ``patch_embeds`` (B, npatch, D) replace the
     first npatch of them."""
-    x = embed(env, params["embed"], batch["tokens"], cfg.vocab_size)
+    x = embed(env, fsdp_gather(env, cfg, params["embed"], "embed"),
+              batch["tokens"], cfg.vocab_size)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -182,30 +214,36 @@ def _embed_prompt(env: Env, cfg: ModelConfig, params: Params,
 def forward(env: Env, cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), aux): ``aux`` is the mean of the MoE
-    layers' load-balance losses, a zero fp32 scalar for the other
-    families.  Differentiable; each layer body is checkpointed when
-    ``env.remat``."""
+    """``batch`` is the global batch (under a mesh the rank runs its part
+    over the batch axes).  Returns (logits (B, S, V), aux): ``aux`` is the
+    mean of the MoE layers' load-balance losses, a zero fp32 scalar for
+    the other families; under a mesh the logits are the rank's (its batch,
+    and its vocabulary where ``layers.vocab_parallel``).  Differentiable;
+    each layer body is checkpointed when ``env.remat``."""
     _check_family(cfg)
-    check_unsharded_training(env)
+    batch = local_batch(env, batch)
     tokens = batch["tokens"]
     B, S = tokens.shape
+    env = training_env(env, S)
     x = _embed_prompt(env, cfg, params, batch)
+    if env.seq_shard_activations:      # the rank's block of the sequence
+        x = split_to(x, env.tp_group, 1)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_stack_forward(env, cfg, params, x, positions)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
-        def body(x, bp):
+        def body(x, bp, i):
+            bp = fsdp_gather(env, cfg, bp, f"blocks/{i}")
             x, aux, _ = _attn_ffn_block(env, cfg, bp, x, positions)
             return x, aux
         auxs = []
-        for bp in params["blocks"]:
-            x, aux = layer_call(env, body, x, bp)
+        for i, bp in enumerate(params["blocks"]):
+            x, aux = layer_call(env, body, x, bp, i)
             auxs.append(aux)
         aux = (torch.stack(auxs).mean() if cfg.family == "moe" else
                torch.zeros((), dtype=torch.float32, device=x.device))
-    return _logits(env, cfg, params, x), aux
+    return _logits(env, cfg, params, x, gather_vocab=False), aux
 
 
 def _ssm_stack_forward(env: Env, cfg: ModelConfig, params: Params,
@@ -214,12 +252,13 @@ def _ssm_stack_forward(env: Env, cfg: ModelConfig, params: Params,
     """Mamba2 layers, each followed by the hybrid's shared block where it
     applies; a layer and its shared block are one checkpointed body."""
     def body(x, bp, idx):
-        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        bp = fsdp_gather(env, cfg, bp, f"blocks/{idx}")
+        h = rms_norm(x, replicated_weight(env, bp["ln1"]), cfg.norm_eps)
         s, _ = ssm_block(env, bp["ssm"], h, cfg)
         x = x + s
         if _shared_applies(cfg, idx):
-            x, _, _ = _attn_ffn_block(env, cfg, params["shared"], x,
-                                      positions)
+            shared = fsdp_gather(env, cfg, params["shared"], "shared")
+            x, _, _ = _attn_ffn_block(env, cfg, shared, x, positions)
         return x
     for idx, bp in enumerate(params["blocks"]):
         x = layer_call(env, body, x, bp, idx)
@@ -280,6 +319,7 @@ def prefill(env: Env, cfg: ModelConfig, params: Params,
     """batch: tokens (B, S) int; vlm also ``patch_embeds`` (B, npatch, D),
     which replace the first npatch token embeddings."""
     _check_family(cfg)
+    env = _serving(env)
     B_all, S = batch["tokens"].shape
     max_len = max_len or S
     batch = local_batch(env, batch)
@@ -338,6 +378,7 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
     a mesh ``batch`` is global and ``cache`` and the logits this rank's.
     """
     _check_family(cfg)
+    env = _serving(env)
     batch = local_batch(env, batch)
     tokens, pos = batch["tokens"], batch["pos"]
     x = embed(env, params["embed"], tokens, cfg.vocab_size)

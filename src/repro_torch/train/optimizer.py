@@ -14,6 +14,19 @@ int8 codes and per-block scales carry across with the params' transposition.
 ``adamw_update`` writes the new params and moments into the old tensors,
 leaf by leaf, as the reference launcher's ``jit`` with donated state
 reuses their buffers: a model's fp32 state is not held twice.
+
+Under a mesh (a :class:`MeshLayout`) every rank updates its shard of the
+params and moments (ZeRO-3: the state is laid out as the params, which the
+rules split over tp and over the batch axes).  The clipping norm stays
+global: each rank sums the squares of the elements it owns (a replicated
+element is counted on one of the ranks holding it,
+``sharding.owned_mask``), then one all-reduce over every rank.  The
+quantized second moment keeps the reference's global blocks: where a
+rank holds a part of the blocked axis (split over tp or the batch axes,
+even in pieces that are not whole, aligned blocks), each block's maximum
+is the MAX all-reduce of the ranks' partial maxima over the group that
+splits the axis; the rank keeps the codes of its own elements and the
+scale of every block of the axis.
 """
 
 from __future__ import annotations
@@ -24,6 +37,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..distributed.collectives import all_reduce
+from ..distributed.sharding import GradRule, grad_rule, owned_mask
+from ..models.common import full_shapes
 from ..models.convert import reference_last_axis
 from .tree import tree_leaves, tree_leaves_with_path, tree_map, \
     tree_map_with_path
@@ -128,13 +144,88 @@ def _dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, shape,
     return deq.movedim(-1, axis)
 
 
-def adamw_init(params: Params, cfg: AdamWConfig) -> AdamState:
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """A model's params on one rank of a mesh: every leaf's gradient rule
+    (``distributed/sharding.py``) and full shape, by path."""
+
+    env: Any
+    rules: Dict[str, GradRule]
+    full: Dict[str, Tuple[int, ...]]
+
+    @classmethod
+    def of(cls, cfg, env) -> Optional["MeshLayout"]:
+        """The layout of ``cfg``'s params on ``env``'s rank; None without
+        a mesh."""
+        if env.mesh is None:
+            return None
+        full = full_shapes(cfg)
+        return cls(env, {path: grad_rule(cfg, env, path, shape)
+                         for path, shape in full.items()}, full)
+
+    def split_axis(self, path: str, axis: int):
+        """(global positions, full size, group) of the rank's elements
+        along ``axis`` of the leaf at ``path`` where the rank holds only
+        part of it; None where it holds it whole."""
+        rule = self.rules[path]
+        axis = axis % len(rule.index)
+        positions = rule.index[axis]
+        if positions is None:
+            return None
+        mesh = self.env.mesh
+        group = (mesh.group(tuple(self.env.batch_axes))
+                 if axis == rule.fsdp_dim else self.env.tp_group)
+        return positions, self.full[path][axis], group
+
+
+def _quantize_split(x: torch.Tensor, block: int, axis: int, split
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_quantize_blocks` of a rank's part of a tensor whose blocked
+    ``axis`` it holds only in part: ``split`` = (global positions of its
+    elements along the axis, the axis's full size, the group that splits
+    it).  Returns the codes of its elements (unpadded) and the scale of
+    every global block (the axis holding the block index)."""
+    positions, full, group = split
+    x = x.movedim(axis, -1)
+    blk = (positions // block).to(x.device)
+    nb = -(-full // block)
+    peak = x.new_zeros(tuple(x.shape[:-1]) + (nb,)).scatter_reduce(
+        -1, blk.expand(x.shape), x, "amax", include_self=True)
+    peak = all_reduce(peak.contiguous(), group, op="max")
+    scale = peak / 127.0 + 1e-30
+    q = torch.clamp(torch.round(x / scale.index_select(-1, blk)), 0,
+                    127).to(torch.int8)
+    return q.movedim(-1, axis), scale.movedim(-1, axis)
+
+
+def _dequantize_split(q: torch.Tensor, scale: torch.Tensor, block: int,
+                      axis: int, split) -> torch.Tensor:
+    blk = (split[0] // block).to(q.device)
+    deq = q.movedim(axis, -1).to(torch.float32) * \
+        scale.movedim(axis, -1).index_select(-1, blk)
+    return deq.movedim(-1, axis)
+
+
+def _quantize(x: torch.Tensor, block: int, axis: int, split):
+    return (_quantize_blocks(x, block, axis) if split is None else
+            _quantize_split(x, block, axis, split))
+
+
+def _split(layout: Optional[MeshLayout], path: str, p: torch.Tensor):
+    return None if layout is None else \
+        layout.split_axis(path, reference_last_axis(path, p))
+
+
+def adamw_init(params: Params, cfg: AdamWConfig,
+               layout: Optional[MeshLayout] = None) -> AdamState:
+    """Zero moments laid out as ``params`` (under ``layout``'s mesh, the
+    rank's shard)."""
     mu = tree_map(lambda p: torch.zeros_like(p, dtype=cfg.mu_dtype), params)
     if cfg.quantize_nu:
         def zero_blocks(part):
-            return lambda path, p: _quantize_blocks(
+            return lambda path, p: _quantize(
                 torch.zeros_like(p, dtype=torch.float32), cfg.quant_block,
-                reference_last_axis(path, p))[part]
+                reference_last_axis(path, p), _split(layout, path, p))[part]
         nu = tree_map_with_path(zero_blocks(0), params)
         nu_scale = tree_map_with_path(zero_blocks(1), params)
     else:
@@ -146,23 +237,37 @@ def adamw_init(params: Params, cfg: AdamWConfig) -> AdamState:
     return AdamState(step, mu, nu, nu_scale)
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree: Params,
+                layout: Optional[MeshLayout] = None) -> torch.Tensor:
+    """The L2 norm of every leaf; under ``layout``'s mesh, of the global
+    tree, each element counted once."""
+    if layout is None:
+        leaves = [torch.sum(torch.square(x.to(torch.float32)))
+                  for x in tree_leaves(tree)]
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    leaves = []
+    for path, x in tree_leaves_with_path(tree):
+        sq = torch.square(x.to(torch.float32))
+        mask = owned_mask(layout.rules[path], x)
+        leaves.append(torch.sum(sq if mask is None else sq * mask))
+    env = layout.env
+    total = torch.sum(torch.stack(leaves)).reshape(1)
+    total = all_reduce(total, env.mesh.group(env.mesh.axis_names))[0]
+    return torch.sqrt(total)
 
 
 def adamw_update(grads: Params, state: AdamState, params: Params,
-                 cfg: AdamWConfig
+                 cfg: AdamWConfig, layout: Optional[MeshLayout] = None
                  ) -> Tuple[Params, AdamState, Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new_params, new_state, metrics): the new
     values are written into the tensors of ``params`` and ``state``, one
-    leaf at a time, and those are returned (with a new ``step``)."""
+    leaf at a time, and those are returned (with a new ``step``).
+    ``layout``: the mesh's, where the tensors are the rank's shards."""
     step = state.step + 1
     sched = get_schedule(cfg.schedule, cfg.lr, cfg.warmup, cfg.total_steps)
     lr = sched(step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step_f = step.to(torch.float32)
     b1c = 1 - cfg.b1 ** step_f
@@ -180,9 +285,12 @@ def adamw_update(grads: Params, state: AdamState, params: Params,
               + (1 - cfg.b1) * g).to(cfg.mu_dtype)
         if cfg.quantize_nu:
             axis = reference_last_axis(path, p)
-            nu = _dequantize_blocks(v, s, p.shape, cfg.quant_block, axis)
+            split = _split(layout, path, p)
+            nu = (_dequantize_blocks(v, s, p.shape, cfg.quant_block, axis)
+                  if split is None else
+                  _dequantize_split(v, s, cfg.quant_block, axis, split))
             nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
-            v2, s2 = _quantize_blocks(nu, cfg.quant_block, axis)
+            v2, s2 = _quantize(nu, cfg.quant_block, axis, split)
         else:
             nu = v2 = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
             s2 = None

@@ -36,8 +36,14 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_importing_the_launcher_loads_neither_jax_nor_repro():
+    """The launchers (serving, training, the dry run) and the analysis CLI
+    import neither JAX nor the reference, and importing them initialises
+    no process group (the dry run makes its fake one in ``run_cell``)."""
     code = ("import sys, repro_torch.launch.serve, repro_torch.serve, "
-            "repro_torch.analysis.__main__;"
+            "repro_torch.analysis.__main__, repro_torch.launch.train, "
+            "repro_torch.launch.dryrun;"
+            "import torch.distributed as dist;"
+            "assert not dist.is_initialized();"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

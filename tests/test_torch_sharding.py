@@ -282,13 +282,15 @@ def test_gqa_reduced_variant_is_what_the_rank_tests_run():
     assert cfg.num_heads % 4 == 0 and cfg.num_kv_heads % 4 != 0
 
 
-def test_training_forward_under_a_mesh_is_refused():
-    """The port's collectives carry no gradient yet: a forward under a
-    mesh with grad on raises before any collective."""
-    cfg = get_config("minicpm-2b").reduced()
-    api = get_model(cfg)
-    env = env_for_mesh(Mesh((1, 2), ("data", "model")), "cpu")
-    params = api.init(torch.Generator().manual_seed(0), device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.forward(env, params, batch)
+def test_training_forward_under_a_mesh_differentiates_to_one_device(
+        tmp_path):
+    """The forward the port once refused under a mesh with grad on: on a
+    (1, 2) mesh of gloo ranks its loss and every gradient leaf (the
+    replicated ones completed by ``sharding.reduce_grads``) equal the
+    rank's part of the one-device loss and gradients, in fp32."""
+    import _torch_ranks as ranks
+    from repro_torch.distributed.spawn import spawn
+    for res in spawn(ranks.forward_grads, 2, args=(1, 2, "dense"),
+                     device="cpu", threads=1, timeout=240,
+                     workdir=str(tmp_path)):
+        assert res["leaves"] > 10 and res["gap"] <= 1e-5, res

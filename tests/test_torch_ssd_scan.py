@@ -239,13 +239,31 @@ def test_cuda_kernel_refuses_cpu_tensors():
     assert kernel.launch_count() == 0
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that says it lies on a device the port does not run on."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on a refused device")
+
+
 def test_ops_refuses_other_devices():
-    x = torch.zeros(1, 8, 2, 4, device="meta")
-    dt = torch.zeros(1, 8, 2, device="meta")
-    A = torch.zeros(2, device="meta")
-    B = torch.zeros(1, 8, 4, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
+    """cuda runs the kernel, cpu the plain version, and meta (a dry run's
+    shapes) the plain version too, launching nothing; any other device is
+    refused before anything runs."""
+    shapes = ((1, 8, 2, 4), (1, 8, 2), (2,), (1, 8, 4))
+    x, dt, A, B = (_Elsewhere(s) for s in shapes)
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
         ops.ssd_scan(x, dt, A, B, B, chunk=4)
+    x, dt, A, B = (torch.zeros(s, device="meta") for s in shapes)
+    y, state = ops.ssd_scan(x, dt, A, B, B, chunk=4)
+    assert y.device.type == "meta" and tuple(y.shape) == (1, 8, 2, 4)
+    assert tuple(state.shape) == (1, 2, 4, 4)
 
 
 # (Bt, S, H, P, N, chunk, dtype, with init_state, y tol)
