@@ -19,7 +19,16 @@ Phases, each of which exits non-zero on failure:
    prompt the shapes of the other served models: whisper's decoder (H = K
    = 20, hd 64), phi-3-vision's (H = K = 32, hd 96 padded to 128),
    kimi-k2's (H 64, K 8, hd 112 padded) and qwen2.5-32b's (H 40, K 8: a
-   GQA group of 5).  SSD: the mamba2-370m and
+   GQA group of 5).  Then flash's non-causal mode (``causal=False``, which
+   no served model calls: the reference sends only causal attention to
+   its kernel), driven through ``ops.flash_attention`` with the launch
+   count set to 0 just before and read just after: whisper-large-v3's
+   encoder self-attention (S 1500, H = K = 20, hd 64) in bf16 and fp32, a
+   cross-attention of the serving prompt over its 1500 frames, GQA, a
+   ragged Sq = Skv = 33, and a q_offset of 160 that must give its offset
+   0 output bit for bit; each held against the plain version; the mode is
+   timed at the encoder shape beside SDPA and its bound (FLOPs not
+   halved).  SSD: the mamba2-370m and
    zamba2-1.2b serving shapes, a padded (S=1000) and a short (S=100)
    prompt, an init_state case and two chained halves against one call, in
    bf16 and in fp32, and a narrow bf16 case (P=32, N=48, 6 heads).  Then each kernel, its plain version and, for flash,
@@ -3761,10 +3770,10 @@ def main() -> int:
                      for shape in ((B, Sq, H, hd), (B, Skv, K, hd),
                                    (B, Skv, K, hd)))
 
-    def plain(q, k, v, q_offset):
+    def plain(q, k, v, q_offset, causal=True):
         return reference_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), q_offset=q_offset
-                                   ).transpose(1, 2)
+                                   v.transpose(1, 2), causal=causal,
+                                   q_offset=q_offset).transpose(1, 2)
 
     cases = [
         # name, B, Sq, Skv, H, K, hd, dtype, q_offset
@@ -3807,24 +3816,72 @@ def main() -> int:
          torch.bfloat16, 0),
     ]
     errors = {}
-    for name, B, Sq, Skv, H, K, hd, dtype, off in cases:
-        q, k, v = qkv(B, Sq, Skv, H, K, hd, dtype)
-        q_offset = torch.full((B,), off, dtype=torch.int32, device=dev)
-        out = ops.flash_attention(q, k, v, q_offset=q_offset)
-        torch.cuda.synchronize()
-        ref = plain(q, k, v, q_offset)
-        tol = 1e-5 if off and dtype == torch.float32 else TOLS[dtype]
+
+    def check(name, out, ref, tol, desc):
         diff = (out.float() - ref.float()).abs()
         err = float(diff.max())
         ok = bool(torch.isfinite(out).all()) and out.shape == ref.shape and \
             bool((diff <= tol + tol * ref.float().abs()).all())
         errors[name] = err
-        print(f"kernel vs plain [{name}] B={B} Sq={Sq} Skv={Skv} H={H} K={K} "
-              f"hd={hd} {str(dtype)[6:]} q_offset={off}: max_abs_err {err:.3g} "
+        print(f"kernel vs plain [{name}] {desc}: max_abs_err {err:.3g} "
               f"(tol {tol:g} abs + rel) {'ok' if ok else 'MISMATCH'}",
               flush=True)
         if not ok:
             fail(f"flash kernel disagrees with the plain version on {name}")
+
+    for name, B, Sq, Skv, H, K, hd, dtype, off in cases:
+        q, k, v = qkv(B, Sq, Skv, H, K, hd, dtype)
+        q_offset = torch.full((B,), off, dtype=torch.int32, device=dev)
+        out = ops.flash_attention(q, k, v, q_offset=q_offset)
+        torch.cuda.synchronize()
+        check(name, out, plain(q, k, v, q_offset),
+              1e-5 if off and dtype == torch.float32 else TOLS[dtype],
+              f"B={B} Sq={Sq} Skv={Skv} H={H} K={K} hd={hd} "
+              f"{str(dtype)[6:]} q_offset={off}")
+
+    # the non-causal mode's own path: every case through the op with the
+    # count set to 0 just before and read just after, then each output
+    # against the plain version; the q_offset case also runs at offset 0,
+    # which it must equal bit for bit
+    nc_start = time.perf_counter()
+    noncausal_cases = [
+        # name, B, Sq, Skv, H, K, hd, dtype, q_offset
+        ("whisper_encoder", 1, 1500, 1500, 20, 20, 64, torch.bfloat16, 0),
+        ("whisper_encoder_fp32", 1, 1500, 1500, 20, 20, 64, torch.float32,
+         0),
+        ("whisper_cross", 1, PROMPT_LEN, 1500, 20, 20, 64, torch.bfloat16, 0),
+        ("gqa_noncausal", 2, 200, 200, 8, 2, 128, torch.bfloat16, 0),
+        ("ragged_noncausal", 1, 33, 33, 4, 4, 64, torch.bfloat16, 0),
+        ("q_offset_noncausal", 2, 96, 256, 4, 4, 64, torch.bfloat16, 160),
+    ]
+    inputs = {name: (qkv(B, Sq, Skv, H, K, hd, dtype),
+                     torch.full((B,), off, dtype=torch.int32, device=dev))
+              for name, B, Sq, Skv, H, K, hd, dtype, off in noncausal_cases}
+    kernel.reset_launch_count()
+    outs = {name: ops.flash_attention(*x, q_offset=o, causal=False)
+            for name, (x, o) in inputs.items()}
+    x, o = inputs["q_offset_noncausal"]
+    offset0 = ops.flash_attention(*x, q_offset=torch.zeros_like(o),
+                                  causal=False)
+    torch.cuda.synchronize()
+    noncausal_launches = kernel.launch_count()
+    if noncausal_launches != len(noncausal_cases) + 1:
+        fail(f"the non-causal path launched flash {noncausal_launches} "
+             f"times, not {len(noncausal_cases) + 1}")
+    for name, B, Sq, Skv, H, K, hd, dtype, off in noncausal_cases:
+        (q, k, v), q_offset = inputs[name]
+        check(name, outs[name], plain(q, k, v, q_offset, causal=False),
+              TOLS[dtype],
+              f"B={B} Sq={Sq} Skv={Skv} H={H} K={K} hd={hd} "
+              f"{str(dtype)[6:]} q_offset={off} non-causal")
+    same = torch.equal(outs["q_offset_noncausal"], offset0)
+    print(f"kernel non-causal [q_offset 160 vs 0]: outputs equal {same} "
+          f"{'ok' if same else 'MISMATCH'}; non-causal launches "
+          f"{noncausal_launches}", flush=True)
+    if not same:
+        fail("the non-causal kernel's output depends on q_offset")
+    del inputs, outs, offset0, x, o
+    nc_seconds = time.perf_counter() - nc_start
 
     # timing at the serving shape, in the kernel's layout
     B, S, H, hd = 1, PROMPT_LEN, 36, 64
@@ -3848,6 +3905,36 @@ def main() -> int:
           f"(mean of 2 rounds of 20, ABBA): kernel {ev['kernel']:.6f}  plain "
           f"{ev['plain']:.6f}  library {ev['library']:.6f}; bound_ms "
           f"{bound_ms:.6f} ({bound_by}; {flops:.4g} FLOP, {nbytes} B)",
+          flush=True)
+
+    # the non-causal mode at whisper-large-v3's encoder shape: every
+    # (query, key) pair is scored, so the FLOPs are not halved
+    nc_start = time.perf_counter()
+    B, S, H, hd = 1, 1500, 20, 64
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in qkv(B, S, S, H, H, hd, torch.bfloat16))
+    fns = {
+        "kernel": lambda: kernel.flash_attention_fwd(
+            q, k, v, q_offset=zero, causal=False),
+        "plain": lambda: reference_attention(q, k, v, causal=False),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=False),
+    }
+    nc_ev = time_abba(fns, ("plain", "kernel", "library"))
+    nc_ms = {n: device_ms(fn)[0] for n, fn in fns.items()}
+    nc_flops = 4.0 * B * H * S * S * hd
+    nc_bytes = 4 * q.numel() * q.element_size()
+    nc_bound_ms, nc_bound_by = bound(nc_flops, nc_bytes)
+    print(f"flash non-causal timing at B={B} S={S} H=K={H} hd={hd} bf16 "
+          f"(whisper-large-v3's encoder), device ms per call (profiler, 20 "
+          f"calls): kernel {nc_ms['kernel']:.6f}  plain {nc_ms['plain']:.6f}"
+          f"  library (SDPA, is_causal=False) {nc_ms['library']:.6f}; event "
+          f"ms (mean of 2 rounds of 20, ABBA): kernel {nc_ev['kernel']:.6f}  "
+          f"plain {nc_ev['plain']:.6f}  library {nc_ev['library']:.6f}; "
+          f"bound_ms {nc_bound_ms:.6f} ({nc_bound_by}; {nc_flops:.4g} FLOP, "
+          f"{nc_bytes} B)", flush=True)
+    nc_seconds += time.perf_counter() - nc_start
+    print(f"phase 3a's non-causal checks and timing: {nc_seconds:.1f} s",
           flush=True)
     del q, k, v, fns
 
@@ -3952,6 +4039,7 @@ def main() -> int:
     # 4-5. plan, and serve at full width ------------------------------------------
     phase5: dict = {}
     launches = serve_phase(dev, port_kernels, phase5)
+    launches["flash"]["noncausal (phase 3a)"] = noncausal_launches
     phase_time("4-5 plan, serve")
 
     # 6. agreement with the CPU at a small size ---------------------------------
@@ -4025,6 +4113,13 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": ms["library"],
         "library_event_ms": ev["library"],
+        "noncausal": {"shape": "B 1, S 1500, H = K = 20, hd 64, bf16",
+                      "ms": nc_ms["kernel"], "event_ms": nc_ev["kernel"],
+                      "plain_ms": nc_ms["plain"],
+                      "plain_event_ms": nc_ev["plain"],
+                      "library_ms": nc_ms["library"],
+                      "library_event_ms": nc_ev["library"],
+                      "bound_ms": nc_bound_ms, "bound_by": nc_bound_by},
         "hmma": hmma["flash_fwd.cu"],
     }, {
         "name": "ssd_scan_fwd",

@@ -1,2 +1,2 @@
-"""Causal GQA flash-attention forward: CUDA kernel (``kernel``), plain
+"""GQA flash-attention forward, causal or not: CUDA kernel (``kernel``), plain
 version (``ref``) and the model-layout wrapper (``ops``)."""

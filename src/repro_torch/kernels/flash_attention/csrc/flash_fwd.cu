@@ -1,28 +1,37 @@
-// Causal GQA flash-attention forward for Hopper (sm_90a): bf16 on the
-// tensor cores (mma.sync), fp32 on scalar FP32 FMA.
+// GQA flash-attention forward for Hopper (sm_90a), causal or not: bf16 on
+// the tensor cores (mma.sync), fp32 on scalar FP32 FMA.
 //
 // Replaces the Pallas TPU kernel
 //   repro/kernels/flash_attention/kernel.py::_flash_fwd_kernel
 // (launched by flash_attention_fwd through pl.pallas_call).  Same function:
 // q (B, H, Sq, hd), k/v (B, K, Skv, hd) with H = G*K; query head h reads KV
-// head h / G; query row i sits at absolute position q_offset[b] + i; key j is
-// visible when j < Skv and j <= q_offset[b] + i (causal); online softmax
-// with fp32 m, l and acc; output in the input dtype.  The port only calls it
-// causal, so the TPU kernel's non-causal switch is not carried over.
+// head h / G; online softmax with fp32 m, l and acc; output in the input
+// dtype.  Causal: query row i sits at absolute position q_offset[b] + i and
+// key j is visible when j < Skv and j <= q_offset[b] + i.  Non-causal (the
+// TPU kernel's causal=False, e.g. an encoder or cross-attention): every key
+// j < Skv is visible and q_offset plays no part.  The mode is the template
+// argument Causal of both kernels, so the causal instantiations carry no
+// test of it in their inner loops.
 //
 // Structure, both types.  The TPU kernel carries acc/m/l in VMEM scratch
 // across a sequential KV grid axis.  Hopper runs blocks in no order, so one
-// block of four warps owns one (b, h, 64-row query tile), heaviest causal
-// tiles first, and loops over 64-key KV tiles itself, stopping at the causal
-// diagonal of its last valid row (q_offset[b] + last row): the TPU kernel's
-// skip of blocks above the diagonal.  Each warp owns 16 query rows.
+// block of four warps owns one (b, h, 64-row query tile) and loops over
+// 64-key KV tiles itself.  Causal, it stops at the diagonal of its last
+// valid row (q_offset[b] + last row), the TPU kernel's skip of blocks above
+// the diagonal, and the blocks are issued heaviest tiles first; non-causal,
+// it visits every KV tile, as the TPU kernel does, every block has the same
+// work and the order means nothing.  Each warp owns 16 query rows.
 //
 // Bound on an H100 SXM (datasheet: 989e12 bf16 FLOP/s dense on the tensor
 // cores, 3.35e12 B/s HBM3): max(flops / 989e12, bytes / 3.35e12) with
-// flops = 2 * 2 * B * H * Sq * Skv * hd, about halved by the causal mask, and
-// bytes = |q| + |k| + |v| + |o|.  At the serving shape (B=1, H=K=36, hd=64,
-// S=1024, bf16) that is about 4.8 GFLOP and 18.9 MB: the bound is bytes
-// (~5.6 us).
+// flops = 2 * 2 * B * H * (visible (query, key) pairs) * hd and bytes =
+// |q| + |k| + |v| + |o|.  Causal, the pairs are about half of Sq * Skv: at
+// the serving shape (B=1, H=K=36, hd=64, S=1024, bf16) that is about 4.8
+// GFLOP and 18.9 MB, and the bound is bytes (~5.6 us).  Non-causal, the
+// pairs are all Sq * Skv: at whisper-large-v3's encoder (B=1, H=K=20,
+// S=1500, hd=64, bf16) that is 4 * 20 * 1500^2 * 64 = 1.152e10 FLOP and
+// 15.36 MB, and the bound is the FLOPs (~11.65 us against ~4.59 us for the
+// bytes alone).
 //
 // bf16 (flash_fwd_bf16_kernel), FlashAttention-2 style, against the limits
 // of the first, scalar design (fp32 FMA only, synchronous single-buffered
@@ -41,7 +50,7 @@
 //     one multiply and 2^x from ex2.approx; P is packed to bf16 straight into
 //     the A fragment of P V, so no probability goes through shared memory;
 //   - masking is applied only to tiles that cross the warp's causal
-//     diagonal or the ragged end of Skv.
+//     diagonal (causal only) or the ragged end of Skv.
 // 46 KB of shared memory at hd 64 (87 KB at hd 128).
 //
 // fp32 (flash_fwd_kernel) keeps the scalar IEEE FMA design: the fp32 path is
@@ -129,7 +138,7 @@ constexpr size_t smem_bytes() {
          (size_t)(kBlockQ * HD + kBlockK * (HD + 4) + kBlockK * HD + kBlockQ * kBlockK);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool Causal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -149,21 +158,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int qtile = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  // longest causal tiles first (non-causal: all tiles are equal)
+  const int qtile = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int K = H / G;
   const int kh = h / G;
   const int q0 = qtile * kBlockQ;
   const int q_rows = min(kBlockQ, Sq - q0);
-  const int off = q_offset[b];
+  const int off = Causal ? q_offset[b] : 0;
 
   const T* qb = q + (((size_t)b * H + h) * Sq + q0) * HD;
   const T* kb = k + ((size_t)b * K + kh) * Skv * HD;
   const T* vb = v + ((size_t)b * K + kh) * Skv * HD;
-  // keys past the diagonal of the tile's last valid row are masked for
-  // every row: stop there
-  const int kv_end = min(Skv, off + q0 + q_rows);
+  // causal: keys past the diagonal of the tile's last valid row are masked
+  // for every row, so stop there
+  const int kv_end = Causal ? min(Skv, off + q0 + q_rows) : Skv;
 
   load_tile<T, HD, LDQ>(sq, qb, q_rows, tid);
 
@@ -223,7 +233,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kKeysPerLane; ++j) {
         const int kpos = k0 + lane + 32 * j;
-        const bool ok = kpos < Skv && kpos <= qpos;
+        const bool ok = kpos < Skv && (!Causal || kpos <= qpos);
         s[r][j] = ok ? s[r][j] * sm_scale : kNegInf;
         mx = fmaxf(mx, s[r][j]);
       }
@@ -284,13 +294,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* q_offset, int B, int H, int K, int Sq, int Skv,
-                   float sm_scale, cudaStream_t stream) {
+                   int causal, float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kern = causal ? flash_fwd_kernel<T, HD, true> : flash_fwd_kernel<T, HD, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), q_offset, H, H / K, Sq, Skv, sm_scale);
   return cudaGetLastError();
@@ -322,7 +333,7 @@ constexpr size_t smem_bytes_bf16() {
   return sizeof(__nv_bfloat16) * (size_t)(kBlockQ + 4 * kBlockK) * (HD + 8);
 }
 
-template <int HD>
+template <int HD, bool Causal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -344,19 +355,20 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int warp = tid >> 5;
   const int g = lane >> 2;
   const int t4 = lane & 3;
-  const int qtile = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
+  // longest causal tiles first (non-causal: all tiles are equal)
+  const int qtile = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int K = H / G;
   const int kh = h / G;
   const int q0 = qtile * kBlockQ;
   const int q_rows = min(kBlockQ, Sq - q0);
-  const int off = q_offset[b];
+  const int off = Causal ? q_offset[b] : 0;
 
   const __nv_bfloat16* qb = q + (((size_t)b * H + h) * Sq + q0) * HD;
   const __nv_bfloat16* kb = k + ((size_t)b * K + kh) * Skv * HD;
   const __nv_bfloat16* vb = v + ((size_t)b * K + kh) * Skv * HD;
-  const int kv_end = min(Skv, off + q0 + q_rows);
+  const int kv_end = Causal ? min(Skv, off + q0 + q_rows) : Skv;
   const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
 
   cp_tile_bf16<HD>(sq, qb, q_rows, tid);
@@ -416,8 +428,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // scale (log2 domain), mask where the tile crosses the diagonal or Skv
-    const bool masked = k0 + kBlockK > Skv || k0 + kBlockK - 1 > warp_pos;
+    // scale (log2 domain), mask where the tile crosses Skv or (causal) the
+    // diagonal
+    const bool masked = k0 + kBlockK > Skv || (Causal && k0 + kBlockK - 1 > warp_pos);
     float mx_lo = kNegInf, mx_hi = kNegInf;
 #pragma unroll
     for (int n = 0; n < NTILES; ++n) {
@@ -426,7 +439,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         const int key = k0 + n * 8 + t4 * 2 + (e & 1);
         const int pos = e < 2 ? pos_lo : pos_hi;
         float x = s[n][e] * scale;
-        if (masked && (key >= Skv || key > pos)) x = kNegInf;
+        // two spellings, not `Causal && key > pos`: that one changes the
+        // causal instantiation's code (143 registers against 134 at hd 64,
+        // ~8% slower on an H100)
+        if constexpr (Causal) {
+          if (masked && (key >= Skv || key > pos)) x = kNegInf;
+        } else {
+          if (masked && key >= Skv) x = kNegInf;
+        }
         s[n][e] = x;
       }
       mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
@@ -498,13 +518,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         const int* q_offset, int B, int H, int K, int Sq, int Skv,
-                        float sm_scale, cudaStream_t stream) {
+                        int causal, float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes_bf16<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kern = causal ? flash_fwd_bf16_kernel<HD, true> : flash_fwd_bf16_kernel<HD, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), q_offset, H, H / K,
       Sq, Skv, sm_scale);
@@ -514,25 +535,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32 (scalar FMA kernel), 1 = bfloat16 (tensor-core
-// kernel).  hd must be 64 or 128 (the wrapper pads other head dims).  All
-// tensors contiguous on `device` and 16-byte aligned; q_offset is (B,)
-// int32.  Launches on `stream` without synchronising; returns the launch's
-// cudaError_t (cudaErrorInvalidValue for an unsupported dtype or hd).
+// kernel).  hd must be 64 or 128 (the wrapper pads other head dims).
+// causal: nonzero masks key j > q_offset[b] + i; zero attends over every
+// key and reads no q_offset.  All tensors contiguous on `device` and 16-byte
+// aligned; q_offset is (B,) int32.  Launches on `stream` without
+// synchronising; returns the launch's cudaError_t (cudaErrorInvalidValue
+// for an unsupported dtype or hd).
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v,
                                void* o, const void* q_offset, int B, int H,
                                int K, int Sq, int Skv, int hd, int dtype,
-                               float sm_scale, int device, void* stream) {
+                               int causal, float sm_scale, int device,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int* qo = static_cast<const int*>(q_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64)
-    return (int)launch<float, 64>(q, k, v, o, qo, B, H, K, Sq, Skv, sm_scale, st);
+    return (int)launch<float, 64>(q, k, v, o, qo, B, H, K, Sq, Skv, causal, sm_scale, st);
   if (dtype == 0 && hd == 128)
-    return (int)launch<float, 128>(q, k, v, o, qo, B, H, K, Sq, Skv, sm_scale, st);
+    return (int)launch<float, 128>(q, k, v, o, qo, B, H, K, Sq, Skv, causal, sm_scale, st);
   if (dtype == 1 && hd == 64)
-    return (int)launch_bf16<64>(q, k, v, o, qo, B, H, K, Sq, Skv, sm_scale, st);
+    return (int)launch_bf16<64>(q, k, v, o, qo, B, H, K, Sq, Skv, causal, sm_scale, st);
   if (dtype == 1 && hd == 128)
-    return (int)launch_bf16<128>(q, k, v, o, qo, B, H, K, Sq, Skv, sm_scale, st);
+    return (int)launch_bf16<128>(q, k, v, o, qo, B, H, K, Sq, Skv, causal, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,9 +6,10 @@ library with a plain C entry point at first use and loaded with ``ctypes``
 when this module is imported.
 
 :func:`flash_attention_fwd` takes the kernel's layout, q (B, H, Sq, hd) and
-k/v (B, K, Skv, hd) with hd 64 or 128, and counts every launch.  The entry
-point picks the kernel by dtype: bf16 runs on the tensor cores, fp32 on the
-scalar FMA kernel; both take the same shapes.
+k/v (B, K, Skv, hd) with hd 64 or 128, causal or not, and counts every
+launch in either mode.  The entry point picks the kernel by dtype: bf16 runs
+on the tensor cores, fp32 on the scalar FMA kernel; both take the same
+shapes and both modes.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..nvcc import build_library, check_operand
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 SUPPORTED_HD = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 _LOCK = threading.Lock()
@@ -61,10 +62,13 @@ def reset_launch_count() -> None:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         q_offset: Optional[torch.Tensor] = None,
+                        causal: bool = True,
                         sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention.  q: (B, H, Sq, hd)  k/v: (B, K, Skv, hd) with
-    H = G*K, on one CUDA device, float32 or bfloat16, hd in (64, 128).
-    Returns (B, H, Sq, hd) in q's dtype, launched on the current stream."""
+    """Attention.  q: (B, H, Sq, hd)  k/v: (B, K, Skv, hd) with H = G*K,
+    on one CUDA device, float32 or bfloat16, hd in (64, 128).  Causal, query
+    row i sees keys j <= q_offset[b] + i; with ``causal=False`` it sees
+    every key and ``q_offset`` plays no part.  Returns (B, H, Sq, hd) in
+    q's dtype, launched on the current stream."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPE_CODE:
@@ -94,7 +98,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              q_offset.data_ptr(), B, H, K, Sq, Skv, hd, _DTYPE_CODE[q.dtype],
-             float(sm_scale), q.device.index, stream)
+             int(bool(causal)), float(sm_scale), q.device.index, stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError_t {err}")
     global _launches

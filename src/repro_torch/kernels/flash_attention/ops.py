@@ -14,7 +14,9 @@ It is a ``torch.autograd.Function``, as the reference's op is a
 ``custom_vjp``: the backward recomputes the attention through the plain
 version on the unpadded operands and differentiates it (on both devices),
 trading one more forward's FLOPs for not keeping the (Sq, Skv) scores.
-``q_offset`` is integer and takes no gradient.
+``q_offset`` is integer and takes no gradient.  ``causal=False`` attends
+over every key, as the reference's op does, in the forward and in the
+backward's recompute alike; ``q_offset`` then plays no part.
 """
 
 from __future__ import annotations
@@ -44,16 +46,17 @@ def _to_kernel_layout(x: torch.Tensor, hd_pad: int) -> torch.Tensor:
 
 
 def _plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           q_offset: torch.Tensor) -> torch.Tensor:
+           q_offset: torch.Tensor, causal: bool) -> torch.Tensor:
     """The plain version in model layout, at the operands' own hd."""
     return reference_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), q_offset=q_offset,
+                               v.transpose(1, 2), causal=causal,
+                               q_offset=q_offset,
                                sm_scale=q.shape[-1] ** -0.5).transpose(1, 2)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, q_offset):
+    def forward(ctx, q, k, v, q_offset, causal):
         if q.device.type not in ("cuda", "cpu", "meta"):
             raise ValueError(f"flash_attention runs on cuda, cpu or meta, "
                              f"not {q.device}")
@@ -62,11 +65,12 @@ class _FlashAttention(torch.autograd.Function):
         qt, kt, vt = (_to_kernel_layout(t, hd_pad) for t in (q, k, v))
         if q.device.type == "cuda":
             out = kernel.flash_attention_fwd(qt, kt, vt, q_offset=q_offset,
-                                             sm_scale=hd ** -0.5)
+                                             causal=causal, sm_scale=hd ** -0.5)
         else:   # cpu, or meta: a dry run's shapes, which launch nothing
-            out = reference_attention(qt, kt, vt, q_offset=q_offset,
-                                      sm_scale=hd ** -0.5)
+            out = reference_attention(qt, kt, vt, causal=causal,
+                                      q_offset=q_offset, sm_scale=hd ** -0.5)
         ctx.save_for_backward(q, k, v, q_offset)
+        ctx.causal = causal
         return out[..., :hd].transpose(1, 2)   # back to (B, Sq, H, hd)
 
     @staticmethod
@@ -74,16 +78,18 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, q_offset = ctx.saved_tensors
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = _plain(*qkv, q_offset)
+            out = _plain(*qkv, q_offset, ctx.causal)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    q_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Model-layout causal GQA attention; differentiable in q, k, v."""
+                    q_offset: Optional[torch.Tensor] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Model-layout GQA attention, causal unless ``causal=False``;
+    differentiable in q, k, v."""
     if q_offset is None:
         q_offset = torch.zeros((q.shape[0],), dtype=torch.int32,
                                device=q.device)
     q_offset = q_offset.to(device=q.device, dtype=torch.int32).contiguous()
-    return _FlashAttention.apply(q, k, v, q_offset)
+    return _FlashAttention.apply(q, k, v, q_offset, bool(causal))

@@ -165,3 +165,26 @@ def test_usage_errors_exit_2(tmp_path, capsys):
                  ["flow", str(broken)], [str(broken)]):
         ref, port = both(argv, capsys)
         assert port == ref and port[0] == 2, argv
+
+
+def test_core_analysis_alias_matches_the_reference():
+    """``repro_torch.core.analysis`` re-exports the analysis layer under the
+    name the reference keeps (``repro.core.analysis``), with its
+    ``__all__``; importing the core does not import it."""
+    import subprocess
+    import sys
+
+    import repro.core.analysis as ref_alias
+    import repro_torch.analysis as port_analysis
+    import repro_torch.core.analysis as port_alias
+    assert port_alias.__all__ == ref_alias.__all__
+    assert all(getattr(port_alias, n) is getattr(port_analysis, n)
+               for n in port_alias.__all__)
+    code = ("import sys, repro_torch.core; "
+            "assert 'repro_torch.analysis' not in sys.modules; "
+            "assert 'repro_torch.core.analysis' not in sys.modules")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

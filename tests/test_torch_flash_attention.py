@@ -3,7 +3,9 @@
 On the CPU the port's wrapper runs its plain PyTorch version; the reference
 runs its Pallas kernel in interpret mode.  Inputs are made with numpy from
 a seed and handed to both.  Tolerances are the reference's own
-(tests/test_kernels.py): fp32 2e-6, bf16 2e-2, q_offset 1e-5.  The CUDA
+(tests/test_kernels.py): fp32 2e-6, bf16 2e-2, q_offset 1e-5.  Both modes
+run: causal, and ``causal=False`` (every key visible, ``q_offset`` ignored),
+which the reference's kernel takes but its own tests never call.  The CUDA
 kernel itself is held against the plain version on the card (``cuda``
 marker; ``python3 chip_smoke.py`` does the same at the serving shape).
 The bf16 CUDA kernel runs on the tensor cores; its rounding points are
@@ -27,6 +29,7 @@ SHAPES = [
     (1, 128, 128, 8, 8, 64),   # MHA
     (2, 96, 96, 4, 1, 16),     # MQA, non-pow2 seq
     (1, 64, 64, 2, 2, 112),    # kimi-style head_dim (padded to 128)
+    (1, 24, 150, 4, 2, 64),    # cross-attention: Sq != Skv, ragged Skv
 ]
 DTYPES = {"float32": ("float32", torch.float32, 2e-6),
           "bfloat16": ("bfloat16", torch.bfloat16, 2e-2)}
@@ -51,16 +54,25 @@ def _f32(x):
     return np.asarray(x, np.float32)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+def _modes(shapes, name):
+    """Each shape causal (its id as before) and non-causal."""
+    return [pytest.param(s, causal, id=name(i, s) + ("" if causal
+                                                    else "-noncausal"))
+            for causal in (True, False) for i, s in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("shape,causal",
+                         _modes(SHAPES, lambda i, s: f"shape{i}"))
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_flash_attention_matches_reference(shape, dtype):
+def test_flash_attention_matches_reference(shape, dtype, causal):
     jnp, jax_flash = _jax()
     B, Sq, Skv, H, K, hd = shape
     jdt, tdt, tol = DTYPES[dtype]
     arrays = _mk_qkv(42, B, Sq, Skv, H, K, hd)
     ref = jax_flash(*(jnp.asarray(a, getattr(jnp, jdt)) for a in arrays),
-                    interpret=True)
-    out = ops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrays))
+                    causal=causal, interpret=True)
+    out = ops.flash_attention(*(torch.from_numpy(a).to(tdt) for a in arrays),
+                              causal=causal)
     assert out.shape == (B, Sq, H, hd) and out.dtype == tdt
     np.testing.assert_allclose(_f32(out), _f32(ref), rtol=tol, atol=tol)
 
@@ -78,12 +90,35 @@ def test_flash_attention_q_offset():
     np.testing.assert_allclose(_f32(out), _f32(ref), rtol=1e-5, atol=1e-5)
 
 
-def _tensor_core_emulation(q, k, v, q_offset, sm_scale, block_k=64):
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_noncausal_ignores_q_offset(dtype):
+    """With causal=False the offset plays no part, in the port as in the
+    reference: an offset of 7 changes neither output by a bit."""
+    jnp, jax_flash = _jax()
+    jdt, tdt, tol = DTYPES[dtype]
+    B, Sq, Skv, H, K, hd = 2, 24, 150, 4, 2, 64
+    arrays = _mk_qkv(5, B, Sq, Skv, H, K, hd)
+    off = np.full((B,), 7, np.int32)
+    jx = [jnp.asarray(a, getattr(jnp, jdt)) for a in arrays]
+    tx = [torch.from_numpy(a).to(tdt) for a in arrays]
+    refs = [jax_flash(*jx, q_offset=o, causal=False, interpret=True)
+            for o in (None, jnp.asarray(off))]
+    outs = [ops.flash_attention(*tx, q_offset=o, causal=False)
+            for o in (None, torch.from_numpy(off))]
+    np.testing.assert_array_equal(_f32(refs[1]), _f32(refs[0]))
+    assert torch.equal(outs[1], outs[0])
+    np.testing.assert_allclose(_f32(outs[1]), _f32(refs[1]), rtol=tol,
+                               atol=tol)
+
+
+def _tensor_core_emulation(q, k, v, q_offset, sm_scale, block_k=64,
+                           causal=True):
     """The bf16 tensor-core kernel's arithmetic in plain PyTorch: q, k, v
     in bf16 (B, heads, S, hd); S = q k^T with fp32 sums; the online softmax
     over 64-key tiles in the log2 domain (exp2, sm_scale * log2 e folded
     into one multiply); P rounded to bf16 before P V, the row sums taken
-    over the unrounded P in fp32; the output rounded to bf16."""
+    over the unrounded P in fp32; the output rounded to bf16.  Non-causal,
+    every key of every tile is visible."""
     B, H, Sq, hd = q.shape
     G = H // k.shape[1]
     qf = q.float()
@@ -97,8 +132,9 @@ def _tensor_core_emulation(q, k, v, q_offset, sm_scale, block_k=64):
         kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kt) * scale
         k_pos = torch.arange(k0, k0 + kt.shape[2])
-        visible = k_pos[None, None] <= q_pos[:, :, None]          # (B, Sq, T)
-        s = torch.where(visible[:, None], s, -1e30)
+        if causal:
+            visible = k_pos[None, None] <= q_pos[:, :, None]      # (B, Sq, T)
+            s = torch.where(visible[:, None], s, -1e30)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp2(s - m_new[..., None])
         corr = torch.exp2(m - m_new)
@@ -115,11 +151,25 @@ TC_SHAPES = [                       # (B, Sq, Skv, H, K, hd, q_offset)
     (1, 33, 33, 4, 4, 64, 0),       # below one tile
     (2, 96, 256, 4, 4, 64, 160),    # q_offset
 ]
+NONCAUSAL_TC_SHAPES = [
+    (1, 1500, 1500, 2, 2, 64, 0),   # whisper's encoder length, 2 heads
+    (1, 24, 150, 4, 2, 64, 0),      # cross-attention, ragged Skv
+    (2, 200, 200, 8, 2, 128, 0),    # GQA, ragged last tile, hd 128
+    (1, 33, 33, 4, 4, 64, 0),       # below one tile
+    (2, 96, 256, 4, 4, 64, 160),    # q_offset, which plays no part
+]
 
 
-@pytest.mark.parametrize("shape", TC_SHAPES,
-                         ids=lambda s: "x".join(map(str, s)))
-def test_tensor_core_numerics_match_reference(shape):
+def _tc_id(shape):
+    return "x".join(map(str, shape))
+
+
+@pytest.mark.parametrize(
+    "shape,causal",
+    [pytest.param(s, True, id=_tc_id(s)) for s in TC_SHAPES]
+    + [pytest.param(s, False, id=_tc_id(s) + "-noncausal")
+       for s in NONCAUSAL_TC_SHAPES])
+def test_tensor_core_numerics_match_reference(shape, causal):
     """The bf16 kernel's rounding points (exp2, P in bf16 before P V) stay
     within the bf16 tolerance of the reference on the same bf16 inputs."""
     jnp, _ = _jax()
@@ -130,10 +180,10 @@ def test_tensor_core_numerics_match_reference(shape):
               for s in ((B, H, Sq, hd), (B, K, Skv, hd), (B, K, Skv, hd))]
     offsets = np.full((B,), off, np.int32)
     ref = jax_ref(*(jnp.asarray(a).astype(jnp.bfloat16) for a in arrays),
-                  q_offset=jnp.asarray(offsets))
+                  causal=causal, q_offset=jnp.asarray(offsets))
     out = _tensor_core_emulation(
         *(torch.from_numpy(a).bfloat16() for a in arrays),
-        torch.from_numpy(offsets), hd ** -0.5)
+        torch.from_numpy(offsets), hd ** -0.5, causal=causal)
     np.testing.assert_allclose(_f32(out), _f32(ref), rtol=2e-2, atol=2e-2)
 
 
@@ -157,30 +207,40 @@ def test_cuda_kernel_refuses_cpu_tensors():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    # (B, Sq, Skv, H, K, hd, dtype, q_offset, tol)
+    # (B, Sq, Skv, H, K, hd, dtype, q_offset, tol[, causal])
     (1, 1024, 1024, 36, 36, 64, torch.bfloat16, 0, 2e-2),   # minicpm prefill
     (2, 200, 200, 8, 2, 128, torch.bfloat16, 0, 2e-2),      # GQA, ragged tile
     (1, 33, 33, 4, 4, 64, torch.bfloat16, 0, 2e-2),         # below one tile
     (2, 96, 256, 4, 4, 64, torch.bfloat16, 160, 2e-2),      # q_offset, bf16
     (2, 96, 256, 4, 4, 64, torch.float32, 160, 1e-5),       # q_offset
     (1, 333, 333, 4, 4, 112, torch.float32, 0, 2e-6),       # fp32, padded hd
+    # non-causal: whisper-large-v3's encoder, a cross-attention, GQA, a
+    # ragged tile, an ignored q_offset, a padded hd
+    (1, 1500, 1500, 20, 20, 64, torch.bfloat16, 0, 2e-2, False),
+    (1, 1500, 1500, 20, 20, 64, torch.float32, 0, 2e-6, False),
+    (1, 24, 150, 4, 2, 64, torch.bfloat16, 0, 2e-2, False),
+    (2, 200, 200, 8, 2, 128, torch.bfloat16, 0, 2e-2, False),
+    (1, 33, 33, 4, 4, 64, torch.bfloat16, 0, 2e-2, False),
+    (2, 96, 256, 4, 4, 64, torch.float32, 160, 2e-6, False),
+    (1, 333, 333, 4, 4, 112, torch.float32, 0, 2e-6, False),
 ])
 def test_cuda_kernel_matches_plain(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    B, Sq, Skv, H, K, hd, dtype, off, tol = case
+    B, Sq, Skv, H, K, hd, dtype, off, tol, *mode = case
+    causal = mode[0] if mode else True
     q, k, v = (torch.from_numpy(a).to("cuda", dtype)
                for a in _mk_qkv(3, B, Sq, Skv, H, K, hd))
     q_offset = torch.full((B,), off, dtype=torch.int32, device="cuda")
     before = kernel.launch_count()
-    out = ops.flash_attention(q, k, v, q_offset=q_offset)
+    out = ops.flash_attention(q, k, v, q_offset=q_offset, causal=causal)
     torch.cuda.synchronize()
     assert kernel.launch_count() == before + 1
     plain = reference_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), q_offset=q_offset
-                                ).transpose(1, 2)
+                                v.transpose(1, 2), causal=causal,
+                                q_offset=q_offset).transpose(1, 2)
     torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
 
 

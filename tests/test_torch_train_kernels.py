@@ -24,12 +24,21 @@ from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
 TOL = 1e-4
 
-FLASH_CASES = [                 # (B, Sq, Skv, H, K, hd, q_offset)
-    (1, 64, 64, 4, 4, 32, 0),   # MHA
-    (2, 48, 48, 4, 2, 16, 0),   # GQA
-    (1, 32, 64, 2, 2, 16, 32),  # q_offset: the block starts at 32
-    (1, 40, 40, 2, 2, 112, 0),  # hd 112, padded to 128 in the forward
+FLASH_CASES = [                 # (B, Sq, Skv, H, K, hd, q_offset, causal)
+    (1, 64, 64, 4, 4, 32, 0, True),     # MHA
+    (2, 48, 48, 4, 2, 16, 0, True),     # GQA
+    (1, 32, 64, 2, 2, 16, 32, True),    # q_offset: the block starts at 32
+    (1, 40, 40, 2, 2, 112, 0, True),    # hd 112, padded to 128 in the forward
+    # non-causal: every key visible, q_offset ignored
+    (1, 64, 64, 4, 4, 32, 0, False),    # MHA
+    (2, 48, 48, 4, 2, 16, 0, False),    # GQA
+    (1, 24, 150, 4, 2, 64, 0, False),   # cross-attention, ragged Skv
+    (1, 32, 64, 2, 2, 16, 32, False),   # an offset that plays no part
+    (1, 40, 40, 2, 2, 112, 0, False),   # hd 112
 ]
+FLASH_IDS = ["mha", "gqa", "q_offset", "hd112", "mha-noncausal",
+             "gqa-noncausal", "cross-noncausal", "q_offset-noncausal",
+             "hd112-noncausal"]
 
 
 def _close(a, b, tol=TOL):
@@ -44,26 +53,26 @@ def _flash_inputs(seed, B, Sq, Skv, H, K, hd):
                       (B, Sq, H, hd))]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES,
-                         ids=["mha", "gqa", "q_offset", "hd112"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=FLASH_IDS)
 def test_flash_attention_grads_match_reference(case):
     import jax
     import jax.numpy as jnp
     from repro.kernels.flash_attention.ops import flash_attention as jflash
-    B, Sq, Skv, H, K, hd, off = case
+    B, Sq, Skv, H, K, hd, off, causal = case
     q, k, v, w = _flash_inputs(3, B, Sq, Skv, H, K, hd)
     offset = np.full((B,), off, np.int32)
 
     def jloss(q, k, v):
-        out = jflash(q, k, v, q_offset=jnp.asarray(offset), interpret=True,
-                     block_q=16, block_k=16)
+        out = jflash(q, k, v, q_offset=jnp.asarray(offset), causal=causal,
+                     interpret=True, block_q=16, block_k=16)
         return jnp.sum(out * w), out
     (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
                                            has_aux=True)(
         *(jnp.asarray(a) for a in (q, k, v)))
 
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
-    out = ops.flash_attention(tq, tk, tv, q_offset=torch.from_numpy(offset))
+    out = ops.flash_attention(tq, tk, tv, q_offset=torch.from_numpy(offset),
+                              causal=causal)
     assert out.shape == (B, Sq, H, hd)
     torch.sum(out * torch.from_numpy(w)).backward()
     _close(out.detach(), jout)
@@ -163,10 +172,11 @@ def test_integer_q_offset_takes_no_gradient():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol,grad_tol", [
-    (torch.float32, 2e-6, 1e-4), (torch.bfloat16, 2e-2, 5e-2)],
-    ids=["fp32", "bf16"])
-def test_cuda_flash_grads_match_plain(dtype, tol, grad_tol):
+@pytest.mark.parametrize("dtype,tol,grad_tol,causal", [
+    (torch.float32, 2e-6, 1e-4, True), (torch.bfloat16, 2e-2, 5e-2, True),
+    (torch.float32, 2e-6, 1e-4, False), (torch.bfloat16, 2e-2, 5e-2, False)],
+    ids=["fp32", "bf16", "fp32-noncausal", "bf16-noncausal"])
+def test_cuda_flash_grads_match_plain(dtype, tol, grad_tol, causal):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -175,8 +185,8 @@ def test_cuda_flash_grads_match_plain(dtype, tol, grad_tol):
     for fn, sink in ((ops.flash_attention, got), (None, want)):
         ts = [torch.from_numpy(a).to("cuda", dtype).requires_grad_()
               for a in (q, k, v)]
-        out = fn(*ts) if fn else reference_attention(
-            *(t.transpose(1, 2) for t in ts)).transpose(1, 2)
+        out = fn(*ts, causal=causal) if fn else reference_attention(
+            *(t.transpose(1, 2) for t in ts), causal=causal).transpose(1, 2)
         torch.sum(out.float() * torch.from_numpy(w).cuda()).backward()
         sink.extend([out.detach()] + [t.grad for t in ts])
     _close(got[0].float().cpu(), want[0].float().cpu(), tol)
