@@ -1,0 +1,1 @@
+"""Metric readers: one file a metric, named as the metric."""
