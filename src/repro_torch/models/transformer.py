@@ -39,6 +39,12 @@ over tp by vocabulary where ``layers.vocab_parallel`` says so, for the
 loss's vocab-parallel softmax.  With ``env.seq_shard_activations`` (and a
 sequence that divides tp) the residual stream between sublayers is the
 rank's block of the sequence.
+
+``prefill`` and ``decode_step`` open ``repro_torch.obs`` spans (recorded
+only while tracing is enabled): ``model.cache_init`` around the prefill's
+cache, one ``block.attn_ffn``, ``block.ssm`` or ``block.shared`` a layer
+(its cache writes included; the order gives the index) and
+``model.logits``.  ``forward`` opens none.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..distributed.collectives import split_to
 from ..distributed.sharding import local_batch, local_cache_index, local_index
+from ..obs.trace import span as _obs_span
 from .common import (Env, dense_init, embed_init, fsdp_gather, layer_call,
                      leaf, resolve_device, under, zeros)
 from .layers import (attention_block, embed, init_attention, init_swiglu,
@@ -326,16 +333,20 @@ def prefill(env: Env, cfg: ModelConfig, params: Params,
     B = batch["tokens"].shape[0]
     x = _embed_prompt(env, cfg, params, batch)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    cache = init_cache(cfg, B_all, max_len, env, dtype=x.dtype)
+    with _obs_span("model.cache_init"):
+        cache = init_cache(cfg, B_all, max_len, env, dtype=x.dtype)
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_stack_prefill(env, cfg, params, x, positions, cache)
     else:
         for i, bp in enumerate(params["blocks"]):
-            x, _, (k, v) = _attn_ffn_block(env, cfg, bp, x, positions)
-            # the cache past the prompt stays zero, as the reference's padding
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-    return _logits(env, cfg, params, x[:, -1:]), cache
+            with _obs_span("block.attn_ffn"):
+                x, _, (k, v) = _attn_ffn_block(env, cfg, bp, x, positions)
+                # the cache past the prompt stays zero, as the reference's
+                # padding
+                cache["k"][i, :, :S] = k
+                cache["v"][i, :, :S] = v
+    with _obs_span("model.logits"):
+        return _logits(env, cfg, params, x[:, -1:]), cache
 
 
 def _shared_applies(cfg: ModelConfig, idx: int) -> bool:
@@ -351,17 +362,19 @@ def _ssm_stack_prefill(env: Env, cfg: ModelConfig, params: Params,
     """Mamba2 layers (and the hybrid's shared block), filling ``cache``."""
     S = x.shape[1]
     for idx, bp in enumerate(params["blocks"]):
-        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        s, (st, conv) = ssm_block(env, bp["ssm"], h, cfg)
-        x = x + s
-        cache["state"][idx] = st
-        cache["conv"][idx] = conv
+        with _obs_span("block.ssm"):
+            h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+            s, (st, conv) = ssm_block(env, bp["ssm"], h, cfg)
+            x = x + s
+            cache["state"][idx] = st
+            cache["conv"][idx] = conv
         if _shared_applies(cfg, idx):
             app = (idx + 1) // cfg.attn_period - 1
-            x, _, (k, v) = _attn_ffn_block(env, cfg, params["shared"], x,
-                                           positions)
-            cache["shared_k"][app, :, :S] = k
-            cache["shared_v"][app, :, :S] = v
+            with _obs_span("block.shared"):
+                x, _, (k, v) = _attn_ffn_block(env, cfg, params["shared"], x,
+                                               positions)
+                cache["shared_k"][app, :, :S] = k
+                cache["shared_v"][app, :, :S] = v
     return x
 
 
@@ -388,10 +401,12 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
         x = _ssm_stack_decode(env, cfg, params, cache, x, positions, kv_len)
     else:
         for i, bp in enumerate(params["blocks"]):
-            x, _, _ = _attn_ffn_block(env, cfg, bp, x, positions,
-                                      kv_cache=(cache["k"][i], cache["v"][i]),
-                                      kv_len=kv_len)
-    return _logits(env, cfg, params, x), cache
+            with _obs_span("block.attn_ffn"):
+                x, _, _ = _attn_ffn_block(
+                    env, cfg, bp, x, positions,
+                    kv_cache=(cache["k"][i], cache["v"][i]), kv_len=kv_len)
+    with _obs_span("model.logits"):
+        return _logits(env, cfg, params, x), cache
 
 
 def _ssm_stack_decode(env: Env, cfg: ModelConfig, params: Params,
@@ -400,17 +415,19 @@ def _ssm_stack_decode(env: Env, cfg: ModelConfig, params: Params,
     """One token through the Mamba2 layers (and the hybrid's shared
     block); the state, conv and shared KV caches are updated in place."""
     for idx, bp in enumerate(params["blocks"]):
-        h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        s, (st, conv) = ssm_block(env, bp["ssm"], h, cfg,
-                                  cache=(cache["state"][idx],
-                                         cache["conv"][idx]))
-        x = x + s
-        cache["state"][idx] = st
-        cache["conv"][idx] = conv
+        with _obs_span("block.ssm"):
+            h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+            s, (st, conv) = ssm_block(env, bp["ssm"], h, cfg,
+                                      cache=(cache["state"][idx],
+                                             cache["conv"][idx]))
+            x = x + s
+            cache["state"][idx] = st
+            cache["conv"][idx] = conv
         if _shared_applies(cfg, idx):
             app = (idx + 1) // cfg.attn_period - 1
-            x, _, _ = _attn_ffn_block(
-                env, cfg, params["shared"], x, positions,
-                kv_cache=(cache["shared_k"][app], cache["shared_v"][app]),
-                kv_len=kv_len)
+            with _obs_span("block.shared"):
+                x, _, _ = _attn_ffn_block(
+                    env, cfg, params["shared"], x, positions,
+                    kv_cache=(cache["shared_k"][app], cache["shared_v"][app]),
+                    kv_len=kv_len)
     return x

@@ -7,6 +7,15 @@ rules as the reference engine (``repro/serve/engine.py``).
 
 The split of GPUs between prefill and decode pools is decided by the
 paper's MBA/SAM (see planner.py); this engine is the execution layer.
+
+Each step opens ``repro_torch.obs`` spans (recorded only while tracing is
+enabled): ``serve.step``; one ``serve.admit`` an admission (``prompt_len``,
+``queued_s``: ``submit`` to admission) around ``serve.prefill``,
+``serve.insert`` and ``serve.first_token``; and ``serve.decode``
+(``active``: the slots decoding) around the batched decode step and
+``serve.sample``, the host's wait for the chosen tokens.  ``serve.admit``
+and ``serve.decode`` span the intervals that ``timings`` records, which
+stays the always-on record.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import torch
 
 from ..models.api import ModelApi
 from ..models.common import Env
+from ..obs.trace import span as _obs_span
 
 
 @dataclasses.dataclass
@@ -95,8 +105,9 @@ class ServeEngine:
     def step(self) -> List[Request]:
         """One engine iteration: admit + prefill one request per free slot,
         then one batched decode step.  Returns finished requests."""
-        self._admit()
-        return self._decode_tick()
+        with _obs_span("serve.step"):
+            self._admit()
+            return self._decode_tick()
 
     def run(self, *, max_ticks: int = 10000) -> List[Request]:
         done: List[Request] = []
@@ -114,12 +125,16 @@ class ServeEngine:
             req = self.pending.popleft()
             t0 = time.perf_counter()
             prompt = req.prompt[: self.max_len - req.max_new_tokens - 1]
-            logits, cache1 = self.api.prefill(self.env, self.params,
-                                              self.prefill_batch(prompt),
-                                              max_len=self.max_len)
-            self._insert_cache(slot, cache1)
-            next_tok = int(torch.argmax(logits[0, -1]))
-            req.first_token_at = time.perf_counter()
+            with _obs_span("serve.admit", prompt_len=len(prompt),
+                           queued_s=t0 - req.submitted):
+                with _obs_span("serve.prefill"):
+                    logits, cache1 = self.api.prefill(
+                        self.env, self.params, self.prefill_batch(prompt),
+                        max_len=self.max_len)
+                self._insert_cache(slot, cache1)
+                with _obs_span("serve.first_token"):
+                    next_tok = int(torch.argmax(logits[0, -1]))
+                req.first_token_at = time.perf_counter()
             self.timings["prefill"].append(req.first_token_at - t0)
             req.output.append(next_tok)
             self.slot_req[slot] = req
@@ -133,8 +148,9 @@ class ServeEngine:
         # shared_k/v) into the device cache (the reference's
         # dynamic_update_slice builds a new array instead):
         # dst (L, B, ...), src (L, 1, ...)
-        for name, dst in self.cache.items():
-            dst[:, slot:slot + 1].copy_(cache1[name])
+        with _obs_span("serve.insert"):
+            for name, dst in self.cache.items():
+                dst[:, slot:slot + 1].copy_(cache1[name])
 
     def _decode_tick(self) -> List[Request]:
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
@@ -142,14 +158,17 @@ class ServeEngine:
             return []
         dev = self.env.device
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(self.slot_last_token[:, None],
-                                 dtype=torch.long, device=dev)
-        pos = torch.as_tensor(self.slot_pos, dtype=torch.long, device=dev)
-        logits, self.cache = self.api.decode_step(
-            self.env, self.params, self.cache, {"tokens": tokens, "pos": pos})
-        next_tokens = torch.argmax(logits[:, 0, :], dim=-1).to(
-            torch.int32).cpu().numpy()
-        self.timings["decode"].append(time.perf_counter() - t0)
+        with _obs_span("serve.decode", active=len(active)):
+            tokens = torch.as_tensor(self.slot_last_token[:, None],
+                                     dtype=torch.long, device=dev)
+            pos = torch.as_tensor(self.slot_pos, dtype=torch.long, device=dev)
+            logits, self.cache = self.api.decode_step(
+                self.env, self.params, self.cache,
+                {"tokens": tokens, "pos": pos})
+            with _obs_span("serve.sample"):
+                next_tokens = torch.argmax(logits[:, 0, :], dim=-1).to(
+                    torch.int32).cpu().numpy()
+            self.timings["decode"].append(time.perf_counter() - t0)
         finished: List[Request] = []
         for slot in active:
             req = self.slot_req[slot]
