@@ -2192,19 +2192,32 @@ def agreement_phase(dev: torch.device) -> None:
                      **{k: torch.as_tensor(v, dtype=torch.float32,
                                            device=env.device)
                         for k, v in extra.items()}}
+            # the routes of the prefill and of one eager decode step on its
+            # cache: the engine on the card replays its decode step as a
+            # CUDA graph, which calls no Python, so its greedy tokens are
+            # what holds the replays to the CPU
             with recorded_calls(moe_module, "_route") as calls:
                 lg, cache = api.prefill(env, params[name], batch,
                                         max_len=120)
-                engine = ServeEngine(api, env, params[name], max_batch=2,
-                                     max_len=120)
-                for p, budget in zip(prompts, (6, 9, 4, 8, 5)):
-                    engine.submit(p, max_new_tokens=budget)
-                outs = {r.rid: r.output for r in engine.run()}
+                cache = {k: t.cpu().clone() for k, t in cache.items()}
+                dlg, _ = api.decode_step(
+                    env, params[name],
+                    {k: t.to(env.device, copy=True) for k, t in cache.items()},
+                    {"tokens": torch.as_tensor(prompts[1:2, :1],
+                                               dtype=torch.long,
+                                               device=env.device),
+                     "pos": torch.full((1,), prompts.shape[1],
+                                       dtype=torch.long, device=env.device)})
             routes[name] = [tuple(t.cpu() for t in out)
                             for _, _, out in calls]
-            got[name] = (lg.cpu(), {k: t.cpu() for k, t in cache.items()},
-                         outs)
+            engine = ServeEngine(api, env, params[name], max_batch=2,
+                                 max_len=120)
+            for p, budget in zip(prompts, (6, 9, 4, 8, 5)):
+                engine.submit(p, max_new_tokens=budget)
+            outs = {r.rid: r.output for r in engine.run()}
+            got[name] = (lg.cpu(), cache, outs, dlg.cpu())
         logit_err = float((got["cpu"][0] - got["cuda"][0]).abs().max())
+        decode_err = float((got["cpu"][3] - got["cuda"][3]).abs().max())
         cache_err = {k: float((t - got["cuda"][1][k]).abs().max())
                      for k, t in got["cpu"][1].items()}
         same_tokens = got["cpu"][2] == got["cuda"][2]
@@ -2230,13 +2243,14 @@ def agreement_phase(dev: torch.device) -> None:
               + (f", seeded {'/'.join(sorted(extra))}" if extra else "")
               + f"): prefill logits max_abs_err {logit_err:.3g}, cache "
               + ", ".join(f"{k} {e:.3g}" for k, e in sorted(cache_err.items()))
+              + f", one eager decode step's logits {decode_err:.3g}"
               + f" (tol 1e-4); greedy tokens of 5 requests equal: "
               f"{same_tokens}" + route_note, flush=True)
         if not same_routes:
             fail(f"{arch}: a routing decision on the card differs from the "
                  "CPU's")
         if logit_err > 1e-4 or max(cache_err.values()) > 1e-4 or \
-                not same_tokens:
+                decode_err > 1e-4 or not same_tokens:
             fail(f"{arch}: the port on the card disagrees with the same "
                  "model on the CPU")
 

@@ -16,6 +16,17 @@ enabled): ``serve.step``; one ``serve.admit`` an admission (``prompt_len``,
 ``serve.sample``, the host's wait for the chosen tokens.  ``serve.admit``
 and ``serve.decode`` span the intervals that ``timings`` records, which
 stays the always-on record.
+
+On one CUDA device (no mesh) the batched decode step is captured once, at
+construction while every slot is free, as a ``torch.cuda.CUDAGraph`` over
+static inputs and the cache, the greedy ``argmax`` included; each tick
+uploads the slots' last tokens and positions in place, replays it and
+reads the tokens.  The replay runs the same kernels on the same data, so
+it changes no arithmetic; what it removes is the host issuing each of the
+step's operations.  The model's ``block.*`` and ``model.logits`` spans
+inside the step therefore open only during the capture; ``serve.decode``
+and ``serve.sample`` still open every tick.  Elsewhere (the CPU, or a mesh,
+whose collectives are not captured) the same step runs eagerly.
 """
 
 from __future__ import annotations
@@ -32,6 +43,16 @@ from ..models.api import ModelApi
 from ..models.common import Env
 from ..obs.trace import span as _obs_span
 
+#: decode steps run on a side stream before the capture (lazy set-up of
+#: the libraries' handles and workspaces), as ``torch.cuda.graph`` asks
+GRAPH_WARMUP = 3
+
+
+def decode_graphed(env: Env) -> bool:
+    """Whether an engine on ``env`` replays its decode step as a CUDA graph:
+    on a CUDA device without a mesh (a mesh's collectives run eagerly)."""
+    return env.device.type == "cuda" and env.mesh is None
+
 
 @dataclasses.dataclass
 class Request:
@@ -47,12 +68,12 @@ class Request:
 class ServeEngine:
     """The cache is allocated once on ``env.device`` in the compute dtype
     (an SSM's recurrent state stays fp32) and updated in place by prefill
-    inserts and decode steps.
+    inserts and decode steps; a captured decode graph holds its addresses.
 
     ``timings`` holds the host seconds of every prefill (cache insert and
-    first token included) and every batched decode step; each ends in a
-    device-to-host read of the chosen tokens, so it covers the device
-    work too."""
+    first token included) and every batched decode step (upload, step or
+    replay, token read); each ends in a device-to-host read of the chosen
+    tokens, so it covers the device work too."""
 
     def __init__(self, api: ModelApi, env: Env, params: Any, *,
                  max_batch: int = 8, max_len: int = 512,
@@ -72,6 +93,13 @@ class ServeEngine:
         self.pending: Deque[Request] = deque()
         self._next_rid = 0
         self.timings: Dict[str, List[float]] = {"prefill": [], "decode": []}
+        # the decode step's inputs, rows (last tokens, positions), and its
+        # chosen tokens, resident on the device for the graph to read/write
+        self._inputs = torch.zeros((2, max_batch), dtype=torch.long,
+                                   device=env.device)
+        self._next = torch.zeros(max_batch, dtype=torch.int32,
+                                 device=env.device)
+        self._graph = self._capture() if decode_graphed(env) else None
 
     # -- API ------------------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32) -> int:
@@ -152,22 +180,47 @@ class ServeEngine:
             for name, dst in self.cache.items():
                 dst[:, slot:slot + 1].copy_(cache1[name])
 
+    def _decode(self) -> None:
+        """The batched decode step over every slot, from ``_inputs`` to
+        ``_next``; the cache is updated in place."""
+        logits, _ = self.api.decode_step(
+            self.env, self.params, self.cache,
+            {"tokens": self._inputs[0][:, None], "pos": self._inputs[1]})
+        self._next.copy_(torch.argmax(logits[:, 0, :], dim=-1))
+
+    def _capture(self) -> "torch.cuda.CUDAGraph":
+        """:meth:`_decode` as a CUDA graph, captured while no slot is in
+        use: the warm-up steps and the capture write the cache, which is
+        then zeroed again."""
+        dev = self.env.device
+        with torch.cuda.device(dev):    # the capture's stream is on ``dev``
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(GRAPH_WARMUP):
+                    self._decode()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                self._decode()
+        for t in self.cache.values():
+            t.zero_()
+        return graph
+
     def _decode_tick(self) -> List[Request]:
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         if not active:
             return []
-        dev = self.env.device
         t0 = time.perf_counter()
         with _obs_span("serve.decode", active=len(active)):
-            tokens = torch.as_tensor(self.slot_last_token[:, None],
-                                     dtype=torch.long, device=dev)
-            pos = torch.as_tensor(self.slot_pos, dtype=torch.long, device=dev)
-            logits, self.cache = self.api.decode_step(
-                self.env, self.params, self.cache,
-                {"tokens": tokens, "pos": pos})
+            self._inputs.copy_(torch.from_numpy(np.stack(
+                [self.slot_last_token, self.slot_pos]).astype(np.int64)))
+            if self._graph is not None:
+                self._graph.replay()
+            else:
+                self._decode()
             with _obs_span("serve.sample"):
-                next_tokens = torch.argmax(logits[:, 0, :], dim=-1).to(
-                    torch.int32).cpu().numpy()
+                next_tokens = self._next.cpu().numpy()
             self.timings["decode"].append(time.perf_counter() - t0)
         finished: List[Request] = []
         for slot in active:

@@ -13,6 +13,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
@@ -21,9 +22,11 @@ from repro.models import transformer as jax_transformer
 from repro.models.common import Env as JaxEnv
 from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_config
+from repro_torch.distributed.mesh import Mesh
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import Env, get_model, params_from_jax
 from repro_torch.serve import ServeEngine
+from repro_torch.serve.engine import decode_graphed
 
 SMALL = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=2,
              head_dim=32, d_ff=256, vocab_size=512, name="minicpm-tiny")
@@ -82,3 +85,76 @@ def test_launch_serve_end_to_end_on_cpu(capsys):
     assert "ServingPlan:" in text and "tok/s" in text and "TTFT p50" in text
     assert res["requests"] == 3 and res["tokens"] == 12
     assert res["device"] == "cpu" and res["peak_mem_bytes"] is None
+
+
+@pytest.mark.parametrize("device,mesh,graphed", [
+    ("cuda", None, True),
+    ("cuda:0", None, True),
+    ("cpu", None, False),
+    ("cuda", (1, 2), False),
+    ("cuda", (2, 2), False),
+    ("cpu", (1, 2), False),
+])
+def test_decode_graph_rule(device, mesh, graphed):
+    """A CUDA graph exactly on a CUDA device without a mesh; the rule reads
+    only the ``Env``, so no card is needed to check it."""
+    env = Env(torch.device(device), torch.bfloat16,
+              mesh=None if mesh is None else Mesh(mesh, ("data", "model")))
+    assert decode_graphed(env) is graphed
+
+
+def _tiny_engine(max_batch=2, max_len=24):
+    tcfg = dataclasses.replace(get_config("minicpm-2b"), **SMALL)
+    api = get_model(tcfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    return ServeEngine(api, Env(torch.device("cpu"), torch.float32), params,
+                       max_batch=max_batch, max_len=max_len)
+
+
+def _prompts():
+    return list(np.random.default_rng(5).integers(0, 512, (5, 10)))
+
+
+def _serve_counting(engine, prompts):
+    """Serve ``prompts`` with ``BUDGETS`` step by step: (tokens by request,
+    engine steps)."""
+    for prompt, budget in zip(prompts, BUDGETS):
+        engine.submit(prompt, max_new_tokens=budget)
+    done, steps = [], 0
+    while engine.has_work():
+        done.extend(engine.step())
+        steps += 1
+    return {r.rid: list(r.output) for r in done}, steps
+
+
+def test_cpu_engine_decodes_eagerly_every_tick():
+    eng = _tiny_engine()
+    assert eng._graph is None
+    out, steps = _serve_counting(eng, _prompts())
+    assert [len(out[i]) for i in range(5)] == BUDGETS
+    # every step with work decodes every slot once
+    assert len(eng.timings["decode"]) == steps
+
+
+class _Replay:
+    """Stands in for the captured graph on the CPU: a replay runs the
+    step it was made from."""
+
+    def __init__(self, step):
+        self.step = step
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        self.step()
+
+
+def test_graph_branch_counts_and_gives_the_eager_tokens():
+    """The tick's replay branch, with the graph stood in for: the same
+    tokens as the eager engine, and one replay a tick."""
+    want, _ = _serve_counting(_tiny_engine(), _prompts())
+    eng = _tiny_engine()
+    eng._graph = _Replay(eng._decode)
+    got, steps = _serve_counting(eng, _prompts())
+    assert got == want
+    assert eng._graph.replays == steps == len(eng.timings["decode"])
