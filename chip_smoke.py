@@ -249,7 +249,9 @@ PEAK_FP32 = 67e12
 # most layers whose weights fit (2 of 61, 73.0 GB in bf16)
 SERVED = ("minicpm-2b", "minitron-4b", "qwen2.5-32b", "qwen2-72b",
           "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b", "zamba2-1.2b",
-          "whisper-large-v3", "mamba2-370m", "phi-3-vision-4.2b")
+          "whisper-large-v3", "mamba2-370m", "phi-3-vision-4.2b",
+          # the port's own: hybrid_moe, whole (31.58 B parameters, 63.16 GB)
+          "nemotron-3-nano-30b-a3b")
 DEPTH_CUTS = {"qwen2-72b": 40, "kimi-k2-1t-a32b": 2}
 CARD_BYTES = 80e9
 # phase 6: one architecture of each family
@@ -633,6 +635,108 @@ def against_plain(reference, args, kw, kern, tol: float = SWEEP_TOL
     close = all(k.shape == p.shape and torch.allclose(
         k, p, rtol=tol, atol=tol) for k, p in zip(kern, plain))
     return err, close, start.elapsed_time(end)
+
+
+# phase 3c: the hybrid_moe kernels at nemotron-3-nano-30b-a3b's widths: the
+# grouped relu^2 experts (top-6 of 128 experts of 2688 x 1856) at a decode
+# step's 64 tokens and at prefills of 192 and 512, and the SSD kernel with
+# B/C in 8 groups (64 heads of 64, state 128)
+MOE_SHAPE = dict(E=128, D=2688, F=1856, k=6)
+MOE_TOKENS = (64, 192, 512)
+MOE_TOLS = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+def moe_inputs(gen, dev, n, E, D, F, k, dtype):
+    """Token rows, each of n tokens sent to k distinct experts drawn from
+    ``gen``, sorted by expert as the MoE hands them over."""
+    x = torch.randn(n, D, generator=gen, device=dev)
+    wu = torch.randn(E, D, F, generator=gen, device=dev) / D ** 0.5
+    wd = torch.randn(E, F, D, generator=gen, device=dev) / F ** 0.5
+    ids = torch.rand(n, E, generator=gen, device=dev).argsort(-1)[:, :k]
+    ids = ids.reshape(-1)
+    order = torch.argsort(ids, stable=True)
+    counts = torch.bincount(ids, minlength=E)
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    scale = torch.rand(n * k, generator=gen, device=dev)[order].contiguous()
+    args = (x.to(dtype), order // k, order, scale, offsets.to(torch.int32),
+            wu.to(dtype), wd.to(dtype))
+    return args, int((counts > 0).sum())
+
+
+def hybrid_moe_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """Phase 3c: each kernel against its plain version (the grouped
+    experts relative to the largest output, at ``MOE_TOLS``; SSD at the
+    reference's tolerances), and the grouped experts' device time against
+    the bytes of the experts hit."""
+    from repro_torch.kernels.moe_grouped import kernel as moe_kernel
+    from repro_torch.kernels.moe_grouped.ops import grouped_relu2
+    from repro_torch.kernels.moe_grouped.ref import grouped_relu2 as plain
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+    res = {"errors": {}, "ms": {}, "bound_ms": {}}
+    E, D, F, k = (MOE_SHAPE[c] for c in "EDFk")
+    cases = [(n, E, D, F, k, torch.bfloat16) for n in MOE_TOKENS]
+    cases.append((37, 8, 64, 48, 2, torch.float32))
+    for n, e, d, f, kk, dtype in cases:
+        args, hit = moe_inputs(gen, dev, n, e, d, f, kk, dtype)
+        before = moe_kernel.launch_count()
+        out = grouped_relu2(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        err = float((out - want).abs().max() / want.abs().max())
+        ok = (moe_kernel.launch_count() == before + 1
+              and out.shape == want.shape and err <= MOE_TOLS[dtype])
+        name = f"{n} tokens {str(dtype)[6:]}"
+        res["errors"][name] = err
+        line = (f"moe_grouped vs plain [{name}] top-{kk} of {e} experts of "
+                f"{d} x {f}, {hit} hit: max_abs_err / max {err:.3g} (tol "
+                f"{MOE_TOLS[dtype]:g})")
+        if dtype == torch.bfloat16:
+            ms, by = device_ms(lambda: grouped_relu2(*args))
+            nbytes = hit * 2 * d * f * 2 + n * d * 2 + n * kk * d * 4
+            bound_ms, bound_by = bound(4.0 * n * kk * d * f, nbytes)
+            res["ms"][n], res["bound_ms"][n] = ms, bound_ms
+            line += (f"; device ms per call (profiler, 20 calls) {ms:.6f} ("
+                     + ", ".join(f"{a} {b:.6f}" for a, b in sorted(by.items()))
+                     + f"), bound_ms {bound_ms:.6f} ({bound_by}), "
+                     f"{100 * bound_ms / ms:.2f}% of it")
+        print(line + (" ok" if ok else " MISMATCH"), flush=True)
+        if not ok:
+            fail(f"the grouped expert kernel disagrees with the plain "
+                 f"version at {name}")
+        del args, out, want
+    for S, dtype, with_init in ((512, torch.bfloat16, False),
+                                (300, torch.bfloat16, True),
+                                (300, torch.float32, True)):
+        H, P, N, G, Q = 64, 64, 128, 8, 128
+        x = torch.randn((1, S, H, P), generator=gen, device=dev).to(dtype)
+        dt = 0.01 + 0.19 * torch.rand((1, S, H), generator=gen, device=dev)
+        A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+        Bm, Cm = (torch.randn((1, S, G, N), generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        init = (torch.randn((1, H, P, N), generator=gen, device=dev)
+                if with_init else None)
+        y, fs = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q, init_state=init)
+        torch.cuda.synchronize()
+        y_ref, fs_ref = ssd_reference(x, dt, A, Bm, Cm, chunk=Q,
+                                      init_state=init)
+        tol = SSD_Y_TOLS[dtype]
+        dy = (y.float() - y_ref.float()).abs()
+        ds = (fs - fs_ref).abs()
+        ok = (bool((dy <= tol + tol * y_ref.float().abs()).all())
+              and bool((ds <= SSD_STATE_TOL
+                        + SSD_STATE_TOL * fs_ref.abs()).all()))
+        name = f"G=8 S={S} {str(dtype)[6:]} init_state={with_init}"
+        res["errors"]["ssd " + name] = float(dy.max())
+        print(f"ssd kernel vs plain [{name}] H={H} P={P} N={N} chunk={Q}: y "
+              f"max_abs_err {float(dy.max()):.3g} (tol {tol:g} abs + rel), "
+              f"state max_abs_err {float(ds.max()):.3g} (tol "
+              f"{SSD_STATE_TOL:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"the SSD kernel disagrees with the plain version at {name}")
+    torch.cuda.empty_cache()
+    return res
 
 
 def scheduler_phase(dev: torch.device):
@@ -2049,9 +2153,11 @@ def serve_phase(dev: torch.device, port_kernels: set,
     from repro_torch.configs import get_config
     from repro_torch.distributed.roofline import H100_SXM
     from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.moe_grouped import kernel as moe_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.launch.serve import run_serving
     from repro_torch.serve import plan_serving
+    from repro_torch.serve.engine import GRAPH_WARMUP
 
     # 4. plan -------------------------------------------------------------------
     print(H100_SXM.describe())
@@ -2063,21 +2169,23 @@ def serve_phase(dev: torch.device, port_kernels: set,
         print(sp.schedule.describe(), flush=True)
 
     # 5. serve at full width (and depth, but for DEPTH_CUTS) -------------------------
-    counters = {"flash": kernel, "ssd": ssd_kernel}
+    counters = {"flash": kernel, "ssd": ssd_kernel, "moe": moe_kernel}
     launches = {name: {} for name in counters}
     for arch in SERVED:
         published = get_config(arch)
         cfg = dataclasses.replace(
             published, num_layers=DEPTH_CUTS.get(arch, published.num_layers))
         n_shared = cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
+        kinds = cfg.layer_kinds
         per_prefill = {
             # causal prompt attention: every attention layer of a decoder,
             # the encoder-decoder's decoder self-attention (its encoder and
             # cross-attention are plain tensor code), the hybrid's shared
             # block
             "flash": (n_shared if cfg.family == "hybrid" else
-                      0 if cfg.family == "ssm" else cfg.num_layers),
-            "ssd": cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0}
+                      kinds.count("*")),
+            "ssd": kinds.count("M"),
+            "moe": kinds.count("E")}
         for mod in counters.values():
             mod.reset_launch_count()
         res = run_serving(cfg, device="cuda", requests=REQUESTS,
@@ -2085,6 +2193,10 @@ def serve_phase(dev: torch.device, port_kernels: set,
                           max_batch=MAX_BATCH, seed=SEED)
         counts = {name: mod.launch_count() for name, mod in counters.items()}
         expected = {name: n * REQUESTS for name, n in per_prefill.items()}
+        # the MoE also runs in the decode step, which the engine calls
+        # eagerly GRAPH_WARMUP times and once more in the capture at its
+        # construction; the graph's replays make no call
+        expected["moe"] = per_prefill["moe"] * (REQUESTS + GRAPH_WARMUP + 1)
         for name, n in counts.items():
             launches[name][arch] = n
         done = res["done"]
@@ -2109,6 +2221,7 @@ def serve_phase(dev: torch.device, port_kernels: set,
             "decode_ms_p50": res["decode_ms_p50"],
             "flash_launches": counts["flash"],
             "ssd_launches": counts["ssd"],
+            "moe_launches": counts["moe"],
             "expected_launches": expected}}), flush=True)
         if counts != expected:
             fail(f"{arch}: kernel launches {counts}, expected {expected}")
@@ -3720,6 +3833,7 @@ def main() -> int:
     sys.path.insert(0, str(HERE / "src"))
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.kernels.moe_grouped import kernel as moe_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_reference
@@ -3752,6 +3866,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together ---------------------------
     sources = {"flash_fwd.cu": kernel.build, "ssd_fwd.cu": ssd_kernel.build,
+               "moe_grouped.cu": moe_kernel.build,
                "sweep_scan.cu": sweep_kernel.build,
                "stream_ops.cu": stream_kernel.build,
                "chain_probe.cu": build_chain_probe}
@@ -4048,6 +4163,9 @@ def main() -> int:
           f"{ssd_bytes:.0f} B)", flush=True)
     del x, dt, A, Bm, Cm, args, full, y1, y2, s1, s2, fns
     torch.cuda.empty_cache()
+
+    # 3c. the hybrid_moe kernels at nemotron-3-nano-30b-a3b's widths --------------
+    moe_res = hybrid_moe_kernels(dev, gen)
     phase_time("3 kernels vs plain")
 
     # 4-5. plan, and serve at full width ------------------------------------------
@@ -4153,6 +4271,23 @@ def main() -> int:
         "bound_by": ssd_bound_by,
         "library_ms": None,
         "hmma": hmma["ssd_fwd.cu"],
+    }, {
+        "name": "grouped_relu2_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_grouped/csrc/moe_grouped.cu",
+        "replaces": None,
+        "launches": launch_total(launches["moe"]),
+        "launches_by_path": launches["moe"],
+        "max_abs_err": moe_res["errors"][f"{MOE_TOKENS[0]} tokens bfloat16"],
+        "max_abs_err_by_case": moe_res["errors"],
+        "ms": moe_res["ms"][MOE_TOKENS[0]],
+        "kernel_ms": moe_res["ms"][MOE_TOKENS[0]],
+        "ms_by_tokens": moe_res["ms"],
+        "bound_ms": moe_res["bound_ms"][MOE_TOKENS[0]],
+        "bound_ms_by_tokens": moe_res["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "hmma": hmma["moe_grouped.cu"],
     }, sweep_entry, *stream_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

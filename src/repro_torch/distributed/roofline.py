@@ -93,6 +93,8 @@ def flops_per_token(cfg: ModelConfig, seq_in_context: int) -> float:
         L = cfg.num_layers
         if cfg.family == "hybrid" and cfg.attn_period:
             L = cfg.num_layers // cfg.attn_period
+        if cfg.family == "hybrid_moe":
+            L = cfg.layer_pattern.count("*")
         if cfg.family == "audio":
             L = cfg.num_layers  # decoder self-attn; cross-attn term below
             fl += 4.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim \
@@ -107,6 +109,12 @@ def _param_bytes(cfg: ModelConfig, dtype_bytes: int = 2) -> float:
 
 def _kv_bytes_per_token(cfg: ModelConfig, context: int,
                         dtype_bytes: int = 2) -> float:
+    if cfg.family == "hybrid_moe":
+        # K/V of the attention layers; the Mamba2 layers' fp32 state
+        state = (cfg.layer_pattern.count("M") * cfg.ssm_inner
+                 * cfg.ssm_state * 4.0)
+        return (cfg.layer_pattern.count("*") * 2 * cfg.num_kv_heads
+                * cfg.head_dim * context * dtype_bytes + state)
     if not cfg.num_heads:
         # SSM state is O(1); conv + state per decode step
         d_in = cfg.ssm_expand * cfg.d_model

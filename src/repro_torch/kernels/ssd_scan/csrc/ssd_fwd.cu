@@ -4,11 +4,14 @@
 // Replaces the Pallas TPU kernel
 //   repro/kernels/ssd_scan/kernel.py::_ssd_kernel
 // (launched by ssd_scan_fwd through pl.pallas_call).  Same function, in the
-// model layout: x (Bt, S, H, P) and B/C (Bt, S, N) in the compute type
+// model layout: x (Bt, S, H, P) and B/C (Bt, S, G, N) in the compute type
 // (fp32 or bf16), dt (Bt, S, H) and A (H,) in fp32, optional init_state
-// (Bt, H, P, N) fp32.  The sequence is cut into chunks of Q positions (the
-// last one may be shorter: the TPU kernel pads it with dt = 0, which adds
-// nothing, so here it is simply masked).  Per (b, h) and chunk, with
+// (Bt, H, P, N) fp32.  B and C come in G groups, each shared by H / G
+// consecutive heads: head h reads group h / (H / G).  G = 1 is the TPU
+// kernel's one group, (Bt, S, N); G = 8 is Nemotron-H's Mamba2.  The
+// sequence is cut into chunks of Q positions (the last one may be
+// shorter: the TPU kernel pads it with dt = 0, which adds nothing, so here
+// it is simply masked).  Per (b, h) and chunk, with
 // cum = cumsum(dt * A) inside the chunk:
 //   y_i     = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
 //             + exp(cum_i) (C_i . state_in)
@@ -29,6 +32,11 @@
 //   3. chunk out, one block per (chunk, 64-row tile of the chunk, b) and
 //      heads: the masked decay "attention" over the tile's columns up to the
 //      diagonal plus the entering state's term, written once as y.
+// Every kernel reads a head's group from its own block indices (no launch
+// per group): the rows of B and C are G * N apart, and a pass-3 block's
+// heads all lie in one group.  Each kernel is instantiated twice: Grouped
+// false is the one-group code, every group index a constant 0, which the
+// reference's models run; true reads G.
 // Nothing of size Q x Q is ever held: each 64 x 64 block of
 // (C_i . B_j) exp(cum_i - cum_j) dt_j is built from cum for one (row tile,
 // column tile <= row tile) at a time, the mask applied before exp, and tiles
@@ -141,12 +149,12 @@ __device__ void chunk_cumsum(const float* __restrict__ dt, int H, float A, int L
 
 // Pass 1.  grid (chunks, H, Bt).  Shared memory: cum[Q rounded to 4],
 // w[64], xT[kMaxP][kLdT], wBT[64][kLdT].
-template <typename T>
+template <typename T, bool Grouped>
 __global__ void __launch_bounds__(kThreads)
 chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                    const float* __restrict__ A, const T* __restrict__ Bm,
                    float* __restrict__ cum, float* __restrict__ states, int S,
-                   int H, int P, int N, int Q) {
+                   int H, int P, int N, int G, int Q) {
   extern __shared__ float4 smem4[];
   float* s_cum = reinterpret_cast<float*>(smem4);
   float* s_w = s_cum + ((Q + 3) & ~3);
@@ -171,8 +179,9 @@ chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int t = tid; t < L; t += kThreads) cum_bh[t] = s_cum[t];
   const float cum_last = s_cum[L - 1];
 
+  const size_t ldbc = Grouped ? (size_t)G * N : (size_t)N;  // B/C row stride
   const T* xb = x + ((size_t)b * S + s0) * H * P + (size_t)h * P;
-  const T* bb = Bm + ((size_t)b * S + s0) * N;
+  const T* bb = Bm + ((size_t)b * S + s0) * ldbc + (Grouped ? (size_t)(h / (H / G)) * N : 0);
   const float* dtb = dt + ((size_t)b * S + s0) * H + h;
   float* out = states + (((size_t)b * H + h) * nc + c) * P * N;
 
@@ -201,7 +210,7 @@ chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int nn = i % kTile;
         const int n = n0 + nn;
         s_wbT[nn * kLdT + jj] =
-            (jj < rj && n < N) ? to_f(bb[(size_t)(j0 + jj) * N + n]) * s_w[jj] : 0.f;
+            (jj < rj && n < N) ? to_f(bb[(size_t)(j0 + jj) * ldbc + n]) * s_w[jj] : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
@@ -259,12 +268,12 @@ state_scan_kernel(float* __restrict__ states, const float* __restrict__ cum,
 // Shared memory: C[64][LDC], B[64][LDC] (then the entering state
 // [kMaxP][LDC]), xT[kMaxP][kLdT], att[64][kLdT], cum_i[64], cum_j[64],
 // dt_j[64].
-template <typename T>
+template <typename T, bool Grouped>
 __global__ void __launch_bounds__(kThreads)
 chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                  const T* __restrict__ Bm, const T* __restrict__ Cm,
                  const float* __restrict__ cum, const float* __restrict__ states,
-                 T* __restrict__ y, int Bt, int S, int H, int P, int N, int Q) {
+                 T* __restrict__ y, int Bt, int S, int H, int P, int N, int G, int Q) {
   const int LDC = row_stride(N);
   const int Npad = (N + 3) & ~3;
   extern __shared__ float4 smem4[];
@@ -291,16 +300,18 @@ chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   if (i0 >= L) return;
   const int ri = min(kTile, L - i0);
 
+  const size_t ldbc = Grouped ? (size_t)G * N : (size_t)N;  // B/C row stride
+  const size_t gofs = Grouped ? (size_t)(h / (H / G)) * N : 0;
   const T* xb = x + ((size_t)b * S + s0) * H * P + (size_t)h * P;
-  const T* bb = Bm + ((size_t)b * S + s0) * N;
-  const T* cb = Cm + ((size_t)b * S + s0) * N;
+  const T* bb = Bm + ((size_t)b * S + s0) * ldbc + gofs;
+  const T* cb = Cm + ((size_t)b * S + s0) * ldbc + gofs;
   const float* dtb = dt + ((size_t)b * S + s0) * H + h;
   const float* cum_bh = cum + ((size_t)b * H + h) * S + s0;
 
   for (int i = tid; i < kTile * Npad; i += kThreads) {
     const int r = i / Npad;
     const int n = i % Npad;
-    s_c[r * LDC + n] = (r < ri && n < N) ? to_f(cb[(size_t)(i0 + r) * N + n]) : 0.f;
+    s_c[r * LDC + n] = (r < ri && n < N) ? to_f(cb[(size_t)(i0 + r) * ldbc + n]) : 0.f;
   }
   if (tid < kTile) s_cum_i[tid] = tid < ri ? cum_bh[i0 + tid] : 0.f;
 
@@ -317,7 +328,7 @@ chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int i = tid; i < kTile * Npad; i += kThreads) {
       const int r = i / Npad;
       const int n = i % Npad;
-      s_b[r * LDC + n] = (r < rj && n < N) ? to_f(bb[(size_t)(j0 + r) * N + n]) : 0.f;
+      s_b[r * LDC + n] = (r < rj && n < N) ? to_f(bb[(size_t)(j0 + r) * ldbc + n]) : 0.f;
     }
     for (int i = tid; i < kTile * kMaxP; i += kThreads) {
       const int jj = i / kMaxP;
@@ -424,21 +435,21 @@ chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
+template <typename T, bool Grouped>
 cudaError_t launch(const void* x, const float* dt, const float* A, const void* Bm,
                    const void* Cm, const float* init_state, void* y, float* final_state,
-                   float* cum, float* states, int Bt, int S, int H, int P, int N, int Q,
-                   cudaStream_t stream) {
+                   float* cum, float* states, int Bt, int S, int H, int P, int N, int G,
+                   int Q, cudaStream_t stream) {
   const int nc = (S + Q - 1) / Q;
   const int n_it = (Q + kTile - 1) / kTile;
   const int LDC = row_stride(N);
 
   const size_t smem1 = sizeof(float) * (size_t)(((Q + 3) & ~3) + kTile + kMaxP * kLdT + kTile * kLdT);
-  cudaError_t err = cudaFuncSetAttribute(chunk_state_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(chunk_state_kernel<T, Grouped>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
-  chunk_state_kernel<T><<<dim3(nc, H, Bt), kThreads, smem1, stream>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), cum, states, S, H, P, N, Q);
+  chunk_state_kernel<T, Grouped><<<dim3(nc, H, Bt), kThreads, smem1, stream>>>(
+      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm), cum, states, S, H, P, N, G, Q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -449,12 +460,12 @@ cudaError_t launch(const void* x, const float* dt, const float* A, const void* B
 
   const size_t smem3 =
       sizeof(float) * (size_t)(2 * kTile * LDC + kMaxP * kLdT + kTile * kLdT + 3 * kTile);
-  err = cudaFuncSetAttribute(chunk_out_kernel<T>,
+  err = cudaFuncSetAttribute(chunk_out_kernel<T, Grouped>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
   if (err != cudaSuccess) return err;
-  chunk_out_kernel<T><<<dim3(nc, H, n_it * Bt), kThreads, smem3, stream>>>(
+  chunk_out_kernel<T, Grouped><<<dim3(nc, H, n_it * Bt), kThreads, smem3, stream>>>(
       static_cast<const T*>(x), dt, static_cast<const T*>(Bm), static_cast<const T*>(Cm), cum,
-      states, static_cast<T*>(y), Bt, S, H, P, N, Q);
+      states, static_cast<T*>(y), Bt, S, H, P, N, G, Q);
   return cudaGetLastError();
 }
 
@@ -505,11 +516,12 @@ __device__ __forceinline__ void cp_rows_bf16(bf16* __restrict__ dst, int ld,
 // is computed.  The summary x^T (w B) is (P, N): warp w owns its
 // rows 16 (w % 4) .. + 15 and the 16-column pairs w / 4, w / 4 + 2, ...; the
 // depth is the chunk's positions, 64 at a time.
+template <bool Grouped>
 __global__ void __launch_bounds__(kThreads)
 chunk_state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A, const bf16* __restrict__ Bm,
                       float* __restrict__ cum, float* __restrict__ states, int S, int H, int P,
-                      int N, int Q) {
+                      int N, int G, int Q) {
   const int LDB = N + 8;
   extern __shared__ float4 smem4[];
   float* s_w = reinterpret_cast<float*>(smem4);
@@ -532,8 +544,9 @@ chunk_state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const float a = A[h];
   const int n_tiles = (L + kTile - 1) / kTile;
 
+  const size_t ldbc = Grouped ? (size_t)G * N : (size_t)N;  // B row stride
   const bf16* xb = x + ((size_t)b * S + s0) * H * P + (size_t)h * P;
-  const bf16* bb = Bm + ((size_t)b * S + s0) * N;
+  const bf16* bb = Bm + ((size_t)b * S + s0) * ldbc + (Grouped ? (size_t)(h / (H / G)) * N : 0);
   const float* dtb = dt + ((size_t)b * S + s0) * H + h;
   float* out = states + (((size_t)b * H + h) * nc + c) * P * N;
 
@@ -541,7 +554,7 @@ chunk_state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     bf16* sx = s_ring + (t & 1) * slot_elems;
     const int rows = min(kTile, L - t * kTile);
     cp_rows_bf16(sx, kLdX, xb + (size_t)t * kTile * H * P, (size_t)H * P, P, rows, tid);
-    cp_rows_bf16(sx + kTile * kLdX, LDB, bb + (size_t)t * kTile * N, (size_t)N, N, rows, tid);
+    cp_rows_bf16(sx + kTile * kLdX, LDB, bb + (size_t)t * kTile * ldbc, ldbc, N, rows, tid);
     tc::cp_async_commit();
   };
   stage(0);  // lands while w is formed
@@ -625,41 +638,43 @@ chunk_state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 }
 
 // Stage column tile [j0, j0 + rj) of pass 3 into one ring slot by cp.async:
-// B_j, the group's x_j, cum_j and dt_j (rows past the chunk, and heads past
-// H, zero).
+// B_j (rows ldbc apart), the block's heads' x_j, cum_j and dt_j (rows past
+// the chunk, and heads from h_end on, zero).
 __device__ __forceinline__ void stage_column_tile(bf16* s_b, bf16* s_x, float* s_cum_j,
                                                   float* s_dt_j, const bf16* bb, const bf16* xb,
                                                   const float* cum_b, const float* dtb, int j0,
-                                                  int rj, int h0, int S, int H, int P, int N,
-                                                  int tid) {
-  cp_rows_bf16(s_b, N + 8, bb + (size_t)j0 * N, (size_t)N, N, rj, tid);
+                                                  int rj, int h0, int h_end, int S, int H, int P,
+                                                  int N, size_t ldbc, int tid) {
+  cp_rows_bf16(s_b, N + 8, bb + (size_t)j0 * ldbc, ldbc, N, rj, tid);
 #pragma unroll
   for (int hh = 0; hh < kHeadsTc; ++hh) {
     const int h = h0 + hh;
-    cp_rows_bf16(s_x + hh * kTile * kLdX, kLdX, xb + ((size_t)j0 * H + min(h, H - 1)) * P,
-                 (size_t)H * P, P, h < H ? rj : 0, tid);
+    cp_rows_bf16(s_x + hh * kTile * kLdX, kLdX, xb + ((size_t)j0 * H + min(h, h_end - 1)) * P,
+                 (size_t)H * P, P, h < h_end ? rj : 0, tid);
   }
   for (int i = tid; i < kHeadsTc * kTile; i += blockDim.x) {
     const int h = h0 + i / kTile;
     const int r = i % kTile;
-    const bool ok = r < rj && h < H;
+    const bool ok = r < rj && h < h_end;
     tc::cp_async4(s_cum_j + i, ok ? cum_b + (size_t)h * S + j0 + r : cum_b, ok ? 4 : 0);
     tc::cp_async4(s_dt_j + i, ok ? dtb + (size_t)(j0 + r) * H + h : dtb, ok ? 4 : 0);
   }
 }
 
-// Pass 3, bf16.  grid (chunks, ceil(H / kHeadsTc), row tiles * Bt), the
-// heaviest row tiles first; kThreadsOut threads.  Warp w owns the tile's rows
+// Pass 3, bf16.  grid (chunks, G * ceil((H / G) / kHeadsTc), row tiles * Bt),
+// the heaviest row tiles first; kThreadsOut threads.  A block's heads lie in
+// one group, whose C_i . B_j^T they share.  Warp w owns the tile's rows
 // 16 (w % 4) .. + 15 and head w / 4 of the block's group.  Shared memory:
 // cum_i[kHeadsTc][64], cum_j and dt_j [2][kHeadsTc][64], CB[64][kLdCB] fp32,
 // then bf16 C_i[64][N + 8], B_j[2][64][N + 8] and x_j[2][kHeadsTc][64][kLdX]
 // (after the column tiles, B_j and x_j hold the group's entering states).
+template <bool Grouped>
 __global__ void __launch_bounds__(kThreadsOut)
 chunk_out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
                     const float* __restrict__ cum, const float* __restrict__ states,
                     int has_init, bf16* __restrict__ y, int Bt, int S, int H, int P, int N,
-                    int Q) {
+                    int G, int Q) {
   const int LDB = N + 8;
   extern __shared__ float4 smem4[];
   float* s_cum_i = reinterpret_cast<float*>(smem4);
@@ -675,7 +690,12 @@ chunk_out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int warp = tid >> 5;
   const int t4 = lane & 3;
   const int c = blockIdx.x;
-  const int h0 = blockIdx.y * kHeadsTc;
+  const int Hg = Grouped ? H / G : H;                              // heads a group
+  const int per_g = Grouped ? (Hg + kHeadsTc - 1) / kHeadsTc : 1;  // blocks a group
+  const int g = Grouped ? blockIdx.y / per_g : 0;
+  const int h0 = Grouped ? g * Hg + (blockIdx.y % per_g) * kHeadsTc : blockIdx.y * kHeadsTc;
+  const int h_end = Grouped ? g * Hg + Hg : H;  // the group's last head + 1
+  const size_t ldbc = Grouped ? (size_t)G * N : (size_t)N;  // B/C row stride
   const int n_it = (Q + kTile - 1) / kTile;
   const int it = n_it - 1 - blockIdx.z / Bt;
   const int b = blockIdx.z % Bt;
@@ -691,20 +711,20 @@ chunk_out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   const int row_hi = row_lo + 8;
 
   const bf16* xb = x + ((size_t)b * S + s0) * H * P;
-  const bf16* bb = Bm + ((size_t)b * S + s0) * N;
-  const bf16* cb = Cm + ((size_t)b * S + s0) * N;
+  const bf16* bb = Bm + ((size_t)b * S + s0) * ldbc + (Grouped ? (size_t)g * N : 0);
+  const bf16* cb = Cm + ((size_t)b * S + s0) * ldbc + (Grouped ? (size_t)g * N : 0);
   const float* dtb = dt + ((size_t)b * S + s0) * H;
   const float* cum_b = cum + (size_t)b * H * S + s0;
 
-  cp_rows_bf16(s_c, LDB, cb + (size_t)i0 * N, (size_t)N, N, ri, tid);
+  cp_rows_bf16(s_c, LDB, cb + (size_t)i0 * ldbc, ldbc, N, ri, tid);
   for (int i = tid; i < kHeadsTc * kTile; i += kThreadsOut) {
     const int h = h0 + i / kTile;
     const int r = i % kTile;
-    const bool ok = r < ri && h < H;
+    const bool ok = r < ri && h < h_end;
     tc::cp_async4(s_cum_i + i, ok ? cum_b + (size_t)h * S + i0 + r : cum_b, ok ? 4 : 0);
   }
-  stage_column_tile(s_b, s_x, s_cum_j, s_dt_j, bb, xb, cum_b, dtb, 0, min(kTile, L), h0, S, H, P,
-                    N, tid);
+  stage_column_tile(s_b, s_x, s_cum_j, s_dt_j, bb, xb, cum_b, dtb, 0, min(kTile, L), h0, h_end, S,
+                    H, P, N, ldbc, tid);
   tc::cp_async_commit();
 
   float acc[8][4];  // [8 columns of P][fragment]
@@ -720,7 +740,7 @@ chunk_out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       stage_column_tile(s_b + (st ^ 1) * kTile * LDB, s_x + (st ^ 1) * kHeadsTc * kTile * kLdX,
                         s_cum_j + (st ^ 1) * kHeadsTc * kTile,
                         s_dt_j + (st ^ 1) * kHeadsTc * kTile, bb, xb, cum_b, dtb, nj,
-                        min(kTile, L - nj), h0, S, H, P, N, tid);
+                        min(kTile, L - nj), h0, h_end, S, H, P, N, ldbc, tid);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // this column tile (and C_i) has landed
@@ -812,7 +832,7 @@ chunk_out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
         const int i = base + u * kThreadsOut;
         const int h = h0 + i / PN4;
         v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (i < kHeadsTc * PN4 && h < H)
+        if (i < kHeadsTc * PN4 && h < h_end)
           v[u] = *reinterpret_cast<const float4*>(
               states + (((size_t)b * H + h) * nc + c) * P * N + (size_t)(i % PN4) * 4);
       }
@@ -859,7 +879,7 @@ chunk_out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 
   const int h = h0 + hh;
-  if (h >= H) return;
+  if (h >= h_end) return;
   bf16* yb = y + (((size_t)b * S + s0 + i0) * H + h) * P;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -874,22 +894,23 @@ chunk_out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+template <bool Grouped>
 cudaError_t launch_bf16(const void* x, const float* dt, const float* A, const void* Bm,
                         const void* Cm, const float* init_state, void* y, float* final_state,
-                        float* cum, float* states, int Bt, int S, int H, int P, int N, int Q,
-                        cudaStream_t stream) {
+                        float* cum, float* states, int Bt, int S, int H, int P, int N, int G,
+                        int Q, cudaStream_t stream) {
   const int nc = (S + Q - 1) / Q;
   const int n_it = (Q + kTile - 1) / kTile;
   const int LDB = N + 8;
 
   const size_t smem1 = sizeof(float) * (size_t)((Q + 3) & ~3) +
                        sizeof(bf16) * (size_t)(2 * kTile * LDB + 2 * kTile * (kLdX + LDB));
-  cudaError_t err = cudaFuncSetAttribute(chunk_state_tc_kernel,
+  cudaError_t err = cudaFuncSetAttribute(chunk_state_tc_kernel<Grouped>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
-  chunk_state_tc_kernel<<<dim3(nc, H, Bt), kThreads, smem1, stream>>>(
+  chunk_state_tc_kernel<Grouped><<<dim3(nc, H, Bt), kThreads, smem1, stream>>>(
       static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm), cum, states, S, H, P, N,
-      Q);
+      G, Q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -900,20 +921,21 @@ cudaError_t launch_bf16(const void* x, const float* dt, const float* A, const vo
 
   const size_t smem3 = sizeof(float) * (size_t)(5 * kHeadsTc * kTile + kTile * kLdCB) +
                        sizeof(bf16) * (size_t)(3 * kTile * LDB + 2 * kHeadsTc * kTile * kLdX);
-  err = cudaFuncSetAttribute(chunk_out_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem3);
+  err = cudaFuncSetAttribute(chunk_out_tc_kernel<Grouped>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
   if (err != cudaSuccess) return err;
-  chunk_out_tc_kernel<<<dim3(nc, (H + kHeadsTc - 1) / kHeadsTc, n_it * Bt), kThreadsOut, smem3,
-                        stream>>>(static_cast<const bf16*>(x), dt, static_cast<const bf16*>(Bm),
-                                  static_cast<const bf16*>(Cm), cum, states,
-                                  init_state != nullptr, static_cast<bf16*>(y), Bt, S, H, P, N, Q);
+  const int per_g = (H / G + kHeadsTc - 1) / kHeadsTc;
+  chunk_out_tc_kernel<Grouped><<<dim3(nc, G * per_g, n_it * Bt), kThreadsOut, smem3, stream>>>(
+      static_cast<const bf16*>(x), dt, static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm),
+      cum, states, init_state != nullptr, static_cast<bf16*>(y), Bt, S, H, P, N, G, Q);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of x, B, C and y).  x (Bt, S, H, P),
-// dt (Bt, S, H) fp32, A (H,) fp32, B/C (Bt, S, N), init_state (Bt, H, P, N)
+// dt (Bt, S, H) fp32, A (H,) fp32, B/C (Bt, S, G, N) with G dividing H,
+// init_state (Bt, H, P, N)
 // fp32 or null (zeros), y (Bt, S, H, P), final_state (Bt, H, P, N) fp32;
 // scratch: cum (Bt, H, S) fp32 and states (Bt, H, ceil(S/Q), P, N) fp32.
 // Q is the chunk length (the caller's min(chunk, S)).  1 <= P <= 64,
@@ -925,9 +947,9 @@ cudaError_t launch_bf16(const void* x, const float* dt, const float* A, const vo
 extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A, const void* Bm,
                              const void* Cm, const void* init_state, void* y,
                              void* final_state, void* cum, void* states, int Bt, int S, int H,
-                             int P, int N, int Q, int dtype, int device, void* stream) {
+                             int P, int N, int G, int Q, int dtype, int device, void* stream) {
   if (Bt < 1 || S < 1 || H < 1 || P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 ||
-      Q > kMaxQ || Q > S)
+      Q > kMaxQ || Q > S || G < 1 || H % G)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -939,9 +961,10 @@ extern "C" int repro_ssd_fwd(const void* x, const void* dt, const void* A, const
   float* sts = static_cast<float*>(states);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, dtf, Af, Bm, Cm, init, y, fs, cumf, sts, Bt, S, H, P, N, Q,
-                                  st);
+    return (int)(G > 1 ? launch<float, true> : launch<float, false>)(
+        x, dtf, Af, Bm, Cm, init, y, fs, cumf, sts, Bt, S, H, P, N, G, Q, st);
   if (dtype == 1 && P % 16 == 0 && N % 16 == 0)
-    return (int)launch_bf16(x, dtf, Af, Bm, Cm, init, y, fs, cumf, sts, Bt, S, H, P, N, Q, st);
+    return (int)(G > 1 ? launch_bf16<true> : launch_bf16<false>)(
+        x, dtf, Af, Bm, Cm, init, y, fs, cumf, sts, Bt, S, H, P, N, G, Q, st);
   return (int)cudaErrorInvalidValue;
 }

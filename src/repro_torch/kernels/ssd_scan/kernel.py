@@ -6,9 +6,10 @@ library with a plain C entry point at first use and loaded with ``ctypes``
 when this module is imported.
 
 :func:`ssd_scan_fwd` takes the model layout (x (Bt, S, H, P), dt (Bt, S, H),
-A (H,), B/C (Bt, S, N)), allocates the outputs and the two scratch buffers
-the kernel's passes share, and counts every call: one call is one launch
-of the C entry point, which runs the kernel's three passes.  The entry point
+A (H,), B/C (Bt, S, N) or, in G groups, (Bt, S, G, N)), allocates the
+outputs and the two scratch buffers the kernel's passes share, and counts
+every call: one call is one launch of the C entry point, which runs the
+kernel's three passes.  The entry point
 picks the passes by dtype: bf16 runs the tensor-core passes, which take P
 and N multiples of 16 (:func:`check_tensor_core_shape`), fp32 the scalar
 ones.
@@ -28,7 +29,7 @@ from ..nvcc import build_library, check_operand
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc" / "ssd_fwd.cu"
 MAX_P, MAX_N, MAX_Q = 64, 256, 4096
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 _LOCK = threading.Lock()
 #: the loaded library and its build record, filled on first use
@@ -73,7 +74,8 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Chunked SSD forward on one CUDA device.
 
     x: (Bt, S, H, P) float32 or bfloat16; dt: (Bt, S, H) float32; A: (H,)
-    float32; B/C: (Bt, S, N) in x's dtype; init_state: (Bt, H, P, N)
+    float32; B/C: (Bt, S, N), or (Bt, S, G, N) with G dividing H (head h
+    reads group h // (H / G)), in x's dtype; init_state: (Bt, H, P, N)
     float32 or None (zeros).  The chunk length is Q = min(chunk, S); the
     last chunk may be shorter.  Returns y (Bt, S, H, P) in x's dtype and
     the final state (Bt, H, P, N) float32, launched on the current stream.
@@ -87,8 +89,9 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"x must be (Bt, S, H, P), got {tuple(x.shape)}")
     Bt, S, H, P = x.shape
     N = B.shape[-1]
-    if (dt.shape != (Bt, S, H) or A.shape != (H,) or B.shape != (Bt, S, N)
-            or C.shape != B.shape):
+    G = B.shape[2] if B.ndim == 4 else 1
+    if (dt.shape != (Bt, S, H) or A.shape != (H,) or C.shape != B.shape
+            or B.shape not in ((Bt, S, N), (Bt, S, G, N)) or H % G):
         raise ValueError(f"bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
                          f"A{tuple(A.shape)} B{tuple(B.shape)} "
                          f"C{tuple(C.shape)}")
@@ -119,7 +122,7 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
              C.data_ptr(), None if init_state is None else init_state.data_ptr(),
              y.data_ptr(), final_state.data_ptr(), cum.data_ptr(),
-             states.data_ptr(), Bt, S, H, P, N, Q, _DTYPE_CODE[x.dtype],
+             states.data_ptr(), Bt, S, H, P, N, G, Q, _DTYPE_CODE[x.dtype],
              dev.index, stream)
     if err != 0:
         raise RuntimeError(f"ssd_fwd launch failed: cudaError_t {err}")

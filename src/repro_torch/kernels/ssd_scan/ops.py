@@ -1,7 +1,8 @@
 """SSD scan in model layout, dispatched on the tensors' device.
 
 ``ssd_scan(x, dt, A, B, C, chunk=Q)`` with x: (Bt, S, H, P), dt: (Bt, S, H),
-A: (H,), B/C: (Bt, S, N) (the layout ``ssm_block`` produces):
+A: (H,), B/C: (Bt, S, N), or (Bt, S, G, N) in G groups (the layouts
+``ssm_block`` produces):
 
 * makes the operands contiguous (``ssm_block`` hands it views of one
   projection),

@@ -37,7 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..configs import get_config
-from ..configs.base import ModelConfig
+from ..configs.base import REDUCED_PATTERN, ModelConfig
 from ..data import SyntheticTokens, TokenPipeline, plan_pipeline
 from ..distributed.collectives import recording
 from ..distributed.spawn import spawn
@@ -66,6 +66,12 @@ def scale_config(cfg: ModelConfig, scale: str) -> ModelConfig:
         kw.update(num_experts=min(cfg.num_experts, 8),
                   experts_per_token=min(cfg.experts_per_token, 2),
                   d_ff=512)
+    if cfg.family == "hybrid_moe":
+        kw.update(layer_pattern=REDUCED_PATTERN,
+                  num_layers=len(REDUCED_PATTERN), num_experts=8,
+                  experts_per_token=2, d_ff=512, shared_d_ff=1024,
+                  ssm_heads=kw["d_model"] * 2 // cfg.ssm_head_dim,
+                  ssm_groups=2)
     if cfg.family == "audio":
         kw.update(encoder_layers=4, encoder_seq=64)
     if cfg.family == "vlm":

@@ -39,6 +39,25 @@ through ``distributed/collectives.py``:
   decisions, and the aux loss is the global one (its fractions all-reduced
   over the batch axes).
 
+The ``hybrid_moe`` family (Nemotron-H) has a MoE of its own,
+:func:`moe_dropless`, on one device only:
+
+    tokens (N, D)
+      -> fp32 router -> sigmoid scores s (N, E); the top-k of s + bias
+         choose the experts, s of the chosen (renormalised, times the
+         routed scale) weigh them
+      -> stable sort of the N*k assignments by expert, each expert's row
+         offsets on the device
+      -> grouped relu^2 experts over each expert's own rows
+         (``kernels/moe_grouped``: CUDA C++ on the card)
+      -> weighted sum over each token's k rows + the shared relu^2 expert
+
+No assignment is dropped, and the work follows the N*k rows routed, not
+E times a capacity; every shape is fixed by N, so the decode step stays
+one CUDA graph.  Its weights: ``router`` (E, D), ``bias`` (E,), ``wu``
+(E, D, F) and ``wd`` (E, F, D) as the stacks above, and the shared
+expert's ``shared.{wu (Fs, D), wd (D, Fs)}`` in (out, in) layout.
+
 The aux loss is averaged over the batch and tp axes (the reference's
 ``pmean``); the shared SwiGLU is tensor-parallel like any MLP.  Under
 grad the collectives are the differentiable ones of
@@ -61,8 +80,10 @@ import torch.nn.functional as F
 from ..distributed.collectives import (all_gather, all_reduce, copy_to,
                                        exchange, gather_from, reduce_from,
                                        split_to)
-from .common import Env, dense_init, leaf, under
-from .layers import init_swiglu, seq_parallel, swiglu
+from ..kernels.moe_grouped.ops import grouped_relu2
+from ..obs import metrics as _obs_metrics
+from .common import Env, dense_init, leaf, under, zeros
+from .layers import _linear, init_swiglu, seq_parallel, swiglu
 
 Params = Dict[str, Any]
 
@@ -272,3 +293,72 @@ def moe_ffn(env: Env, p: Params, x: torch.Tensor, *, num_experts: int,
     if "shared" in p:
         y = y + swiglu(env, p["shared"], x, shared_d_ff)
     return y, aux
+
+
+# ---------------------------------------------------------------------------
+# hybrid_moe: sigmoid router with a selection bias, dropless relu^2 experts
+# ---------------------------------------------------------------------------
+
+def init_moe_dropless(gen: torch.Generator, d_model: int, d_ff: int,
+                      num_experts: int, shared_d_ff: int,
+                      kw: Dict[str, Any]) -> Params:
+    """Projections as the reference's distributions; the selection bias
+    zeros (a trained model's is learned)."""
+    E, D = num_experts, d_model
+    return {
+        "router": dense_init(gen, (E, D), **leaf(kw, "router")),
+        "bias": zeros((E,), **leaf(kw, "bias")),
+        "wu": dense_init(gen, (E, D, d_ff), in_axis=-2, **leaf(kw, "wu")),
+        "wd": dense_init(gen, (E, d_ff, D), in_axis=-2, **leaf(kw, "wd")),
+        "shared": {
+            "wu": dense_init(gen, (shared_d_ff, D),
+                             **leaf(under(kw, "shared"), "wu")),
+            "wd": dense_init(gen, (D, shared_d_ff),
+                             **leaf(under(kw, "shared"), "wd"))},
+    }
+
+
+def route_sigmoid(xf: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+                  k: int, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weights (N, k) fp32, expert ids (N, k)): the top-k of sigmoid(x
+    Wr^T) + bias, weighted by their sigmoid scores alone, renormalised and
+    times ``scale``."""
+    s = torch.sigmoid(F.linear(xf.float(), router.float()))
+    ids = torch.topk(s + bias.float(), k, dim=-1).indices
+    w = s.gather(1, ids)
+    return w / (w.sum(dim=-1, keepdim=True) + 1e-20) * scale, ids
+
+
+def relu2_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``wd relu(wu x)^2`` with (out, in) weights, the square in fp32."""
+    h = torch.relu(_linear(x, p["wu"]).float()).square().to(x.dtype)
+    return _linear(h, p["wd"])
+
+
+def moe_dropless(env: Env, p: Params, x: torch.Tensor, *, num_experts: int,
+                 experts_per_token: int, routed_scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``hybrid_moe`` MoE sublayer of x (B, S, D): every token's k
+    chosen experts and the shared expert.  Returns (y (B, S, D), the
+    chosen experts (B, S, k)).  One device only."""
+    if env.mesh is not None:
+        raise ValueError("the dropless MoE runs on one device; sharding it "
+                         "is not implemented")
+    B, S, D = x.shape
+    N, k = B * S, experts_per_token
+    xf = x.reshape(N, D)
+    w, ids = route_sigmoid(xf, p["router"], p["bias"], k, routed_scale)
+    flat = ids.reshape(-1)                                   # (N*k,)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(num_experts, dtype=flat.dtype,
+                         device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    if _obs_metrics.REGISTRY.enabled:     # known from the shapes alone
+        _obs_metrics.counter("moe.routed_rows",
+                             "Rows the dropless MoE routed (tokens x k).",
+                             "rows").inc(N * k)
+    routed = grouped_relu2(xf, order // k, order, w.reshape(-1)[order],
+                           offsets, p["wu"].to(x.dtype), p["wd"].to(x.dtype))
+    y = routed.view(N, k, D).sum(dim=1) + relu2_mlp(p["shared"], xf).float()
+    return y.to(x.dtype).reshape(B, S, D), ids.view(B, S, k)

@@ -8,6 +8,14 @@ card, its plain version on the CPU); this module holds the block plumbing
 (projections, depthwise causal conv, gating, the single-token decode
 update), in the reference's order of operations and casts.
 
+Two variants beyond the reference's block, both off for its models:
+``cfg.ssm_groups`` G > 1 splits B and C into G groups, head h reading
+group h // (H / G), in the scan and in the decode update alike; and
+``cfg.ssm_gate_first`` gates first, ``y * silu(z)``, then RMS-normalises
+each group of d_inner / G channels (Nemotron-H's ``norm_before_gate``
+False), where the reference's block normalises all the channels and then
+gates.  ``cfg.ssm_heads`` sets the width as heads times head width.
+
 Under a tp mesh (``env.tp_shards`` of the SSD heads) each rank keeps its
 block of heads, split by structure (``distributed/sharding.py``): its
 heads' rows of ``z``, ``x`` and ``dt`` in ``in_proj`` and all of ``B`` and
@@ -38,24 +46,38 @@ Params = Dict[str, Any]
 
 
 def ssm_dims(d_model: int, expand: int, head_dim: int, n_state: int,
-             conv_width: int) -> Dict[str, int]:
-    d_inner = expand * d_model
+             conv_width: int, *, groups: int = 1, d_inner: int = 0
+             ) -> Dict[str, int]:
+    """``d_inner``: the width where given (heads times head width), else
+    ``expand * d_model``; ``groups`` of B and C."""
+    d_inner = d_inner or expand * d_model
     nheads = d_inner // head_dim
-    d_conv = d_inner + 2 * n_state          # x, B, C go through the conv
+    d_conv = d_inner + 2 * groups * n_state  # x, B, C go through the conv
     return dict(d_inner=d_inner, nheads=nheads, d_conv=d_conv,
-                conv_width=conv_width, n_state=n_state, head_dim=head_dim)
+                conv_width=conv_width, n_state=n_state, head_dim=head_dim,
+                groups=groups)
+
+
+def cfg_dims(cfg) -> Dict[str, int]:
+    """:func:`ssm_dims` of ``cfg``'s Mamba2 layers."""
+    return ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                    cfg.ssm_state, cfg.ssm_conv_width, groups=cfg.ssm_groups,
+                    d_inner=cfg.ssm_inner)
 
 
 def init_ssm(gen: torch.Generator, d_model: int, *, expand: int,
              head_dim: int, n_state: int, conv_width: int,
-             kw: Dict[str, Any]) -> Params:
+             kw: Dict[str, Any], groups: int = 1, d_inner: int = 0
+             ) -> Params:
     """The reference's distributions; ``in_proj``/``out_proj`` in (out, in)
     layout for ``F.linear``, ``conv_w`` (W, d_conv) as the reference.
-    ``kw``: the ``device``/``dtype`` (and a rank's shard, ``common.leaf``)."""
-    dims = ssm_dims(d_model, expand, head_dim, n_state, conv_width)
+    ``kw``: the ``device``/``dtype`` (and a rank's shard, ``common.leaf``);
+    ``groups``, ``d_inner``: as :func:`ssm_dims`."""
+    dims = ssm_dims(d_model, expand, head_dim, n_state, conv_width,
+                    groups=groups, d_inner=d_inner)
     d_in, H = dims["d_inner"], dims["nheads"]
     device = kw["device"]
-    in_proj = dense_init(gen, (2 * d_in + 2 * n_state + H, d_model),
+    in_proj = dense_init(gen, (2 * d_in + 2 * groups * n_state + H, d_model),
                          **leaf(kw, "in_proj"))
     out_proj = dense_init(gen, (d_model, d_in), **leaf(kw, "out_proj"))
     conv_w = dense_init(gen, (conv_width, dims["d_conv"]), in_axis=0,
@@ -110,10 +132,9 @@ def ssm_block(env: Env, p: Params, x: torch.Tensor, cfg, *,
     serve).  A single token against a cache takes the recurrent update;
     anything longer goes through the SSD scan.
     """
-    dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
-                    cfg.ssm_state, cfg.ssm_conv_width)
-    d_full, H, hd, N = (dims["d_inner"], dims["nheads"], dims["head_dim"],
-                        dims["n_state"])
+    dims = cfg_dims(cfg)
+    d_full, H, hd, N, G = (dims["d_inner"], dims["nheads"], dims["head_dim"],
+                           dims["n_state"], dims["groups"])
     shard = env.tp_shards(H)
     if shard:                                 # this rank's block of heads
         H //= env.tp
@@ -121,13 +142,17 @@ def ssm_block(env: Env, p: Params, x: torch.Tensor, cfg, *,
     d_in = H * hd
     Bt, S, _ = x.shape
     proj = _linear(x, p["in_proj"])
-    z, xin, Bmat, Cmat, dt = torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
+    z, xin, Bmat, Cmat, dt = torch.split(proj, [d_in, d_in, G * N, G * N, H],
+                                         dim=-1)
     conv_in = torch.cat([xin, Bmat, Cmat], dim=-1)
     conv_state = cache[1] if cache is not None else None
     conv_out, new_conv_state = _depthwise_causal_conv(
         conv_in, p["conv_w"], p["conv_b"], conv_state)
     conv_out = F.silu(conv_out.float()).to(x.dtype)
-    xin, Bmat, Cmat = torch.split(conv_out, [d_in, N, N], dim=-1)
+    xin, Bmat, Cmat = torch.split(conv_out, [d_in, G * N, G * N], dim=-1)
+    if G > 1:                                 # (B, S, G, N): head h, group h // (H / G)
+        Bmat = Bmat.reshape(Bt, S, G, N)
+        Cmat = Cmat.reshape(Bt, S, G, N)
     xh = xin.reshape(Bt, S, H, hd)
     A = -torch.exp(p["A_log"].float())                          # (H,)
     dt = F.softplus(dt.float() + p["dt_bias"].float())          # (B,S,H)
@@ -141,21 +166,38 @@ def ssm_block(env: Env, p: Params, x: torch.Tensor, cfg, *,
         state = cache[0]                                        # (B,H,hd,N)
         dt1 = dt[:, 0]                                          # (B,H)
         dA = torch.exp(dt1 * A[None, :])                        # (B,H)
-        xB = torch.einsum("bhp,bn->bhpn", xh[:, 0].float(),
-                          Bmat[:, 0].float())
+        Bn, Cn, bc = Bmat[:, 0].float(), Cmat[:, 0].float(), "bn"
+        if G > 1:                             # each head's group: (B,H,N)
+            Bn = Bn.repeat_interleave(H // G, dim=1)
+            Cn, bc = Cn.repeat_interleave(H // G, dim=1), "bhn"
+        xB = torch.einsum(f"bhp,{bc}->bhpn", xh[:, 0].float(), Bn)
         final_state = (dA[:, :, None, None] * state
                        + dt1[:, :, None, None] * xB)
-        y = torch.einsum("bhpn,bn->bhp", final_state, Cmat[:, 0].float())
+        y = torch.einsum(f"bhpn,{bc}->bhp", final_state, Cn)
         y = y[:, None].to(x.dtype)                              # (B,1,H,hd)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
     y = y.reshape(Bt, S, d_in)
-    if shard:
-        y = _rms_norm_over_tp(env, y, p["norm"], d_full, cfg.norm_eps)
+    if cfg.ssm_gate_first:
+        y = _gated_group_norm(y, z, p["norm"], G, cfg.norm_eps)
     else:
-        y = rms_norm(y, p["norm"], cfg.norm_eps)
-    y = y * F.silu(z.float()).to(x.dtype)
+        if shard:
+            y = _rms_norm_over_tp(env, y, p["norm"], d_full, cfg.norm_eps)
+        else:
+            y = rms_norm(y, p["norm"], cfg.norm_eps)
+        y = y * F.silu(z.float()).to(x.dtype)
     out = tp_exit(env, _linear(y, p["out_proj"]), shard)
     return out, (final_state, new_conv_state)
+
+
+def _gated_group_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                      groups: int, eps: float) -> torch.Tensor:
+    """``y * silu(z)``, then an RMS norm over each of ``groups`` equal runs
+    of channels with the (1 + scale) gain, in fp32 (Nemotron-H's gated
+    norm, ``norm_before_gate`` False)."""
+    g = y.float() * F.silu(z.float())
+    gs = g.reshape(*g.shape[:-1], groups, -1)
+    gs = gs * torch.rsqrt(gs.square().mean(dim=-1, keepdim=True) + eps)
+    return (gs.reshape(g.shape) * (1.0 + scale.float())).to(y.dtype)
 
 
 def _rms_norm_over_tp(env: Env, y: torch.Tensor, scale: torch.Tensor,

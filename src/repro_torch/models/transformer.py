@@ -6,6 +6,10 @@
 * ssm        : Mamba2 (SSD) block per layer (mamba2-370m)
 * hybrid     : Mamba2 backbone + ONE weight-shared attention+SwiGLU block
                applied after every ``attn_period``-th layer (zamba2)
+* hybrid_moe : one pre-norm mixer a layer, ``x + mixer(norm(x))``, its kind
+               by ``cfg.layer_pattern``: M a Mamba2 block (grouped B/C,
+               gate-first norm), E the dropless MoE (``moe.moe_dropless``),
+               * GQA attention without RoPE (Nemotron-H); one device only
 
 Entry points:
 
@@ -19,7 +23,9 @@ Params: ``embed`` (V, D), ``blocks`` — a list with one dict per layer
 (dense, vlm: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``, ``mlp.{wg,wu,wd}``;
 moe: ``moe.{router,wg,wu,wd[,shared]}`` in place of ``mlp``; ssm and
 hybrid: ``ln1``, ``ssm.{in_proj,conv_w,conv_b,A_log,D,dt_bias,norm,
-out_proj}``), the hybrid's ``shared`` attention+MLP block, ``final_norm``
+out_proj}``; hybrid_moe: ``ln1`` and one of ``ssm``, ``moe.{router,bias,
+wu,wd,shared.{wu,wd}}`` or ``attn``), the hybrid's ``shared``
+attention+MLP block, ``final_norm``
 and, untied, ``head`` (V, D); projections in (out, in) layout.  The layer
 stack is a Python loop; the training ``forward`` checkpoints each layer body
 when ``env.remat``.  The audio family is ``models/encdec.py``'s.
@@ -42,9 +48,10 @@ rank's block of the sequence.
 
 ``prefill`` and ``decode_step`` open ``repro_torch.obs`` spans (recorded
 only while tracing is enabled): ``model.cache_init`` around the prefill's
-cache, one ``block.attn_ffn``, ``block.ssm`` or ``block.shared`` a layer
-(its cache writes included; the order gives the index) and
-``model.logits``.  ``forward`` opens none.
+cache, one ``block.attn_ffn``, ``block.ssm``, ``block.shared``,
+``block.moe`` (attribute ``rows``: tokens x experts a token) or
+``block.attn`` a layer (its cache writes included; the order gives the
+index) and ``model.logits``.  ``forward`` opens none.
 """
 
 from __future__ import annotations
@@ -62,20 +69,32 @@ from .common import (Env, dense_init, embed_init, fsdp_gather, layer_call,
                      leaf, resolve_device, under, zeros)
 from .layers import (attention_block, embed, init_attention, init_swiglu,
                      lm_head, replicated_weight, rms_norm, swiglu)
-from .moe import init_moe, moe_ffn
-from .ssm import init_ssm, ssm_block, ssm_dims
+from .moe import init_moe, init_moe_dropless, moe_dropless, moe_ffn
+from .ssm import cfg_dims, init_ssm, ssm_block
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
-_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "hybrid_moe")
 _SSM_FAMILIES = ("ssm", "hybrid")
 
 
-def _check_family(cfg: ModelConfig) -> None:
+def _check_family(cfg: ModelConfig, env: Optional[Env] = None) -> None:
     if cfg.family not in _FAMILIES:
         raise ValueError(f"family {cfg.family!r} ({cfg.name}) is not "
                          "handled by transformer.py (audio: models/encdec.py)")
+    if cfg.family == "hybrid_moe" and env is not None and \
+            env.mesh is not None:
+        raise ValueError(f"{cfg.name}: the hybrid_moe family runs on one "
+                         "device; sharding it over a mesh is not implemented")
+
+
+def _kind_index(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
+    """hybrid_moe: each layer's kind and its index among the layers of its
+    kind (its row of the cache: ``state``/``conv`` for M, ``k``/``v`` for
+    *)."""
+    pat = cfg.layer_pattern
+    return tuple((kind, pat[:i].count(kind)) for i, kind in enumerate(pat))
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +116,27 @@ def _init_attn_ffn(cfg: ModelConfig, gen: torch.Generator,
                             cfg.shared_experts, under(kw, "moe"))
     else:
         p["mlp"] = init_swiglu(gen, D, cfg.d_ff, under(kw, "mlp"))
+    return p
+
+
+def _init_pattern_layer(cfg: ModelConfig, gen: torch.Generator,
+                        kw: Dict[str, Any], kind: str) -> Params:
+    """A hybrid_moe layer: its norm and its mixer of ``kind``."""
+    D = cfg.d_model
+    p: Params = {"ln1": zeros((D,), **leaf(kw, "ln1"))}
+    if kind == "M":
+        p["ssm"] = init_ssm(gen, D, expand=cfg.ssm_expand,
+                            head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state,
+                            conv_width=cfg.ssm_conv_width,
+                            kw=under(kw, "ssm"), groups=cfg.ssm_groups,
+                            d_inner=cfg.ssm_inner)
+    elif kind == "E":
+        p["moe"] = init_moe_dropless(gen, D, cfg.d_ff, cfg.num_experts,
+                                     cfg.shared_width, under(kw, "moe"))
+    else:
+        p["attn"] = init_attention(gen, D, cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.head_dim, cfg.qkv_bias,
+                                   under(kw, "attn"))
     return p
 
 
@@ -123,7 +163,7 @@ def init(cfg: ModelConfig, gen: torch.Generator, *,
     ``A_log``/``D``/``dt_bias`` for Mamba2 blocks.  Under ``env``'s mesh,
     only this rank's shard of each leaf is drawn (with ``fsdp``, the
     training layout's)."""
-    _check_family(cfg)
+    _check_family(cfg, env)
     dev = resolve_device(device)
     D, V = cfg.d_model, cfg.vocab_size
     kw = shard_kw(cfg, env, dev, dtype, fsdp)
@@ -131,7 +171,10 @@ def init(cfg: ModelConfig, gen: torch.Generator, *,
                  "blocks": []}
     for i in range(cfg.num_layers):
         bkw = under(kw, f"blocks/{i}")
-        if cfg.family in _SSM_FAMILIES:
+        if cfg.family == "hybrid_moe":
+            p["blocks"].append(_init_pattern_layer(cfg, gen, bkw,
+                                                   cfg.layer_pattern[i]))
+        elif cfg.family in _SSM_FAMILIES:
             p["blocks"].append({"ln1": zeros((D,), **leaf(bkw, "ln1")),
                                 "ssm": init_ssm(
                 gen, D, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
@@ -175,6 +218,71 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
     else:
         f, aux = swiglu(env, bp["mlp"], h, cfg.d_ff), None
     return x + f, aux, new_kv
+
+
+def _pattern_layer(env: Env, cfg: ModelConfig, bp: Params, kind: str,
+                   x: torch.Tensor, positions: torch.Tensor, *,
+                   cache: Optional[Cache] = None, at: int = 0,
+                   kv_len: Optional[torch.Tensor] = None):
+    """One hybrid_moe layer, ``x + mixer(rms_norm(x))``.  ``cache`` (decode):
+    the model's cache, this layer's row ``at`` of its kind updated in
+    place.  Returns (x, new cache entries: (state, conv) for M, (k, v)
+    for *, the chosen experts (B, S, k) for E)."""
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    if kind == "M":
+        st = None if cache is None else (cache["state"][at],
+                                         cache["conv"][at])
+        out, new = ssm_block(env, bp["ssm"], h, cfg, cache=st)
+    elif kind == "E":
+        out, new = moe_dropless(
+            env, bp["moe"], h, num_experts=cfg.num_experts,
+            experts_per_token=cfg.experts_per_token,
+            routed_scale=cfg.routed_scale)
+    else:
+        kv = None if cache is None else (cache["k"][at], cache["v"][at])
+        out, new = attention_block(
+            env, bp["attn"], h, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, positions=positions, kv_cache=kv,
+            kv_len=kv_len, use_rope=cfg.use_rope)
+    return x + out, new
+
+
+#: the type of hybrid_moe's ``route`` cache entry (expert ids)
+ROUTE_DTYPE = torch.int16
+
+#: the span of each hybrid_moe layer kind
+_KIND_SPAN = {"M": "block.ssm", "E": "block.moe", "*": "block.attn"}
+
+
+def _pattern_stack(env: Env, cfg: ModelConfig, params: Params,
+                   x: torch.Tensor, positions: torch.Tensor, cache: Cache, *,
+                   decode: bool, kv_len: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """The hybrid_moe layers in prefill (``decode`` False: each layer's
+    fresh state, conv and K/V written into ``cache``) or in decode
+    (``cache`` read and updated in place), each in its span; each MoE
+    layer's choice of experts goes into ``route`` at the tokens'
+    positions."""
+    B, S = x.shape[:2]
+    for bp, (kind, at) in zip(params["blocks"], _kind_index(cfg)):
+        attrs = ({"rows": x.shape[0] * S * cfg.experts_per_token}
+                 if kind == "E" else {})
+        with _obs_span(_KIND_SPAN[kind], **attrs):
+            x, new = _pattern_layer(env, cfg, bp, kind, x, positions,
+                                    cache=cache if decode else None, at=at,
+                                    kv_len=kv_len)
+            if kind == "M":
+                cache["state"][at], cache["conv"][at] = new
+            elif kind == "E" and decode:
+                cache["route"][at, torch.arange(B, device=x.device),
+                               positions[:, 0]] = new[:, 0].to(ROUTE_DTYPE)
+            elif kind == "E":
+                cache["route"][at, :, :S] = new.to(ROUTE_DTYPE)
+            elif not decode:
+                # the cache past the prompt stays zero
+                cache["k"][at, :, :S], cache["v"][at, :, :S] = new
+    return x
 
 
 def _logits(env: Env, cfg: ModelConfig, params: Params,
@@ -227,7 +335,7 @@ def forward(env: Env, cfg: ModelConfig, params: Params,
     the other families; under a mesh the logits are the rank's (its batch,
     and its vocabulary where ``layers.vocab_parallel``).  Differentiable;
     each layer body is checkpointed when ``env.remat``."""
-    _check_family(cfg)
+    _check_family(cfg, env)
     batch = local_batch(env, batch)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -238,6 +346,11 @@ def forward(env: Env, cfg: ModelConfig, params: Params,
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_stack_forward(env, cfg, params, x, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    elif cfg.family == "hybrid_moe":
+        for bp, kind in zip(params["blocks"], cfg.layer_pattern):
+            x = layer_call(env, lambda x, bp, kind=kind: _pattern_layer(
+                env, cfg, bp, kind, x, positions)[0], x, bp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         def body(x, bp, i):
@@ -294,16 +407,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
     """Dense, vlm, moe: ``k``/``v`` (L, B, max_len, K, hd).  ssm/hybrid: ``state``
     (L, B, H, hd, N), fp32 whatever ``dtype`` is, and ``conv``
     (L, B, W-1, d_conv); the hybrid adds ``shared_k``/``shared_v``
-    (L // attn_period, B, max_len, K, hd).  ``batch`` is the global batch;
-    under a mesh each entry is this rank's part."""
-    _check_family(cfg)
+    (L // attn_period, B, max_len, K, hd).  hybrid_moe: ``state`` and
+    ``conv`` for its M layers only, ``k``/``v`` for its * layers only, and
+    ``route`` (E layers, B, max_len, k) int16 for its E layers, the experts
+    each position chose (the MoE's record of the sequence, as K/V are the
+    attention's: what a replay of the same routing reads); each layer's row
+    its index among the layers of its kind.  ``batch`` is the
+    global batch; under a mesh each entry is this rank's part."""
+    _check_family(cfg, env)
     L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    kinds = cfg.layer_kinds
     shapes = {}
-    if cfg.family not in _SSM_FAMILIES:
-        shapes["k"] = shapes["v"] = ((L, batch, max_len, K, hd), dtype)
-    else:
-        dims = ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
-                        cfg.ssm_state, cfg.ssm_conv_width)
+    if "*" in kinds:
+        shapes["k"] = shapes["v"] = ((kinds.count("*"), batch, max_len, K,
+                                      hd), dtype)
+    if "M" in kinds:
+        dims = cfg_dims(cfg)
+        L = kinds.count("M")
         shapes["state"] = ((L, batch, dims["nheads"], dims["head_dim"],
                             dims["n_state"]), torch.float32)
         shapes["conv"] = ((L, batch, cfg.ssm_conv_width - 1,
@@ -311,6 +431,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
         if cfg.family == "hybrid":
             shapes["shared_k"] = shapes["shared_v"] = (
                 (_n_shared(cfg), batch, max_len, K, hd), dtype)
+    if "E" in kinds:
+        shapes["route"] = ((kinds.count("E"), batch, max_len,
+                            cfg.experts_per_token), ROUTE_DTYPE)
     return {name: local_zeros(cfg, env, name, shape, dt)
             for name, (shape, dt) in shapes.items()}
 
@@ -325,7 +448,7 @@ def prefill(env: Env, cfg: ModelConfig, params: Params,
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """batch: tokens (B, S) int; vlm also ``patch_embeds`` (B, npatch, D),
     which replace the first npatch token embeddings."""
-    _check_family(cfg)
+    _check_family(cfg, env)
     env = _serving(env)
     B_all, S = batch["tokens"].shape
     max_len = max_len or S
@@ -337,6 +460,9 @@ def prefill(env: Env, cfg: ModelConfig, params: Params,
         cache = init_cache(cfg, B_all, max_len, env, dtype=x.dtype)
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_stack_prefill(env, cfg, params, x, positions, cache)
+    elif cfg.family == "hybrid_moe":
+        x = _pattern_stack(env, cfg, params, x, positions, cache,
+                           decode=False)
     else:
         for i, bp in enumerate(params["blocks"]):
             with _obs_span("block.attn_ffn"):
@@ -390,7 +516,7 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
     Returns (logits (B,1,V), cache); the cache is updated in place.  Under
     a mesh ``batch`` is global and ``cache`` and the logits this rank's.
     """
-    _check_family(cfg)
+    _check_family(cfg, env)
     env = _serving(env)
     batch = local_batch(env, batch)
     tokens, pos = batch["tokens"], batch["pos"]
@@ -399,6 +525,9 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
     kv_len = pos.long() + 1
     if cfg.family in _SSM_FAMILIES:
         x = _ssm_stack_decode(env, cfg, params, cache, x, positions, kv_len)
+    elif cfg.family == "hybrid_moe":
+        x = _pattern_stack(env, cfg, params, x, positions, cache,
+                           decode=True, kv_len=kv_len)
     else:
         for i, bp in enumerate(params["blocks"]):
             with _obs_span("block.attn_ffn"):

@@ -34,7 +34,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -93,6 +93,9 @@ class ServeEngine:
         self.pending: Deque[Request] = deque()
         self._next_rid = 0
         self.timings: Dict[str, List[float]] = {"prefill": [], "decode": []}
+        #: called with each finished request and its slot, while the slot's
+        #: cache still holds the request's sequence
+        self.on_finish: List[Callable[[Request, int], None]] = []
         # the decode step's inputs, rows (last tokens, positions), and its
         # chosen tokens, resident on the device for the graph to read/write
         self._inputs = torch.zeros((2, max_batch), dtype=torch.long,
@@ -234,6 +237,8 @@ class ServeEngine:
                     or self.slot_pos[slot] >= self.max_len - 1)
             if done:
                 req.finished_at = time.perf_counter()
+                for hook in self.on_finish:
+                    hook(req, slot)
                 finished.append(req)
                 self.slot_req[slot] = None
         return finished

@@ -1,7 +1,8 @@
 """The serving engine's decode step replayed as a CUDA graph, against the
 same step run eagerly, on the card (``cuda`` marker; they skip elsewhere).
 
-One tiny configuration of each family serves five ragged requests on two
+One tiny configuration of each family (hybrid_moe's: every kind of
+layer, its dropless MoE's sort and grouped kernels inside the graph) serves five ragged requests on two
 slots, so freed slots are refilled by later requests.  Before each tick
 the eager ``decode_step`` runs on a clone of the engine's cache and the
 same inputs: the replay must choose the same greedy tokens, write the same
@@ -23,7 +24,8 @@ from repro_torch.models import Env, get_model
 from repro_torch.serve import ServeEngine
 
 FAMILIES = ("minicpm-2b", "moonshot-v1-16b-a3b", "phi-3-vision-4.2b",
-            "mamba2-370m", "zamba2-1.2b", "whisper-large-v3")
+            "mamba2-370m", "zamba2-1.2b", "whisper-large-v3",
+            "nemotron-3-nano-30b-a3b")
 BUDGETS = [3, 6, 2, 5, 4]
 #: bf16 logits, relative to 1 + the largest (``chip_smoke.TOLS``)
 TOL = 2e-2
