@@ -6,8 +6,9 @@
 Phases, each of which exits non-zero on failure:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build: compiles the flash-attention, SSD-scan, sweep and stream-operator
-   kernels from their csrc/ with nvcc, all at once; prints each kernel
+2. build: compiles the flash-attention, SSD-scan, grouped-expert,
+   decode-attention, sweep and stream-operator kernels from their csrc/
+   with nvcc, all at once; prints each kernel
    function's registers
    and spills from ptxas and its count of HMMA (tensor-core) instructions
    from ``cuobjdump -sass`` of the built library, by its demangled name;
@@ -36,7 +37,14 @@ Phases, each of which exits non-zero on failure:
    PyTorch call computes SSD) are timed at the serving shape: device time
    from torch.profiler (the summed time of the device kernels 20 calls
    launch, per call) and, beside it, CUDA events around 20 calls in ABBA
-   order (which include the host's gaps between launches);
+   order (which include the host's gaps between launches).  3c holds
+   the grouped experts and the grouped SSD at nemotron-3-nano's widths;
+   3d the split-KV decode-attention kernel at the cells' decode shapes
+   (minicpm-2b's 16 slots over 4136 and 1544 positions, nemotron-3-nano's
+   64 over 1544 with G = 16), every slot full and at drawn lengths: the
+   kernel against its plain version (bf16 tolerance), its device time
+   (profiler; events beside it) against the bytes of the live cache, the
+   plain version's time and SDPA with a length mask (a yardstick only);
 4. plan: ``plan_serving`` for all ten architectures on the H100 datasheet
    hardware;
 5. serve: for each of the ten models, 8 requests (prompt 1024, 32 new
@@ -49,7 +57,11 @@ Phases, each of which exits non-zero on failure:
    prefill: one per attention layer (minicpm 40, minitron 32, qwen2.5 64,
    qwen2-72b 32, moonshot 48, kimi 1, phi-3-vision 32), whisper's 32
    decoder self-attentions, zamba2's 6 shared blocks; SSD: mamba2 48,
-   zamba2 38.  Peak device memory stays under 80 GB.  One warm prefill
+   zamba2 38.  The decode-attention kernel runs once in each layer
+   holding a K/V cache (the layers flash runs in a prefill) at each of the
+   engine's eager warm-up decode steps and its graph capture, and the
+   ``attn.decode_kernel_calls`` counter (metrics enabled for the run) says
+   the same.  Peak device memory stays under 80 GB.  One warm prefill
    and one batched decode step of each model are traced with
    torch.profiler (device kernels, their summed time and its share of the
    step's wall time, the port's kernels by name);
@@ -735,6 +747,112 @@ def hybrid_moe_kernels(dev: torch.device, gen: torch.Generator) -> dict:
               f"{SSD_STATE_TOL:g}) {'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
             fail(f"the SSD kernel disagrees with the plain version at {name}")
+    torch.cuda.empty_cache()
+    return res
+
+
+# phase 3d: the split-KV decode-attention kernel at the cells' decode shapes:
+# minicpm-2b's 16 slots x 36 heads of 64 over 4136 and 1544 positions, and
+# nemotron-3-nano-30b-a3b's 64 slots x 32 query / 2 KV heads of 128 over
+# 1544; every slot at the full length (the byte bound's case), then at
+# lengths drawn uniformly below it
+DECODE_SHAPES = {"minicpm-2b 16 x 4136": (16, 4136, 36, 36, 64),
+                 "minicpm-2b 16 x 1544": (16, 1544, 36, 36, 64),
+                 "nemotron-3-nano 64 x 1544": (64, 1544, 32, 2, 128)}
+# (atol, rtol) of the kernel against the plain version by dtype: an output
+# value at these lengths has a std of about 0.03 (randn logits spread the
+# softmax over ~S/e keys), so bf16 is held to a tenth of that, about twice
+# the widest error measured; fp32 to the card tests' 1e-5
+DECODE_TOLS = {torch.bfloat16: (2e-3, 1e-2), torch.float32: (1e-5, 1e-5)}
+
+
+def decode_attention_kernels(dev: torch.device, gen: torch.Generator) -> dict:
+    """Phase 3d: the kernel against its plain version (``DECODE_TOLS``, in
+    bf16 and, once a shape, in fp32), its device time (profiler; CUDA
+    events beside it) against the bytes of the live cache, the plain
+    version's time, and SDPA with a length mask as the yardstick only (the
+    port never calls it)."""
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import \
+        reference_decode_attention
+
+    F = torch.nn.functional
+    res = {"errors": {}, "fp32_errors": {}, "ms": {}, "event_ms": {},
+           "bound_ms": {}, "plain_ms": {}, "library_ms": {}}
+
+    def agrees(out, want):
+        atol, rtol = DECODE_TOLS[out.dtype]
+        diff = (out.float() - want.float()).abs()
+        return diff, (bool(torch.isfinite(out.float()).all()) and bool(
+            (diff <= atol + rtol * want.float().abs()).all()))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, (B, S, H, K, hd) in DECODE_SHAPES.items():
+        q = torch.randn((B, 1, H, hd), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, K, hd), generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        plan = da_kernel.split_plan(B, K, H // K, S, sms)
+        drawn = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        for lengths, lens in (("full", torch.full((B,), S, device=dev)),
+                              ("drawn", drawn)):
+            case = f"{name} {lengths}"
+            before = da_kernel.launch_count()
+            out = decode_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+            want = reference_decode_attention(q, k, v, lens)
+            diff, close = agrees(out, want)
+            ok = da_kernel.launch_count() == before + 1 and close
+            res["errors"][case] = float(diff.max())
+            live = int(lens.sum())
+            nbytes = live * K * hd * 2 * 2 + 2 * q.numel() * 2
+            flops = 4.0 * live * H * hd
+            bound_ms = nbytes / HBM_BW * 1e3
+            ms, by = device_ms(lambda: decode_attention(q, k, v, lens))
+            ev = time_ms(lambda: decode_attention(q, k, v, lens))
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            fns = {"plain": lambda: reference_decode_attention(q, k, v, lens),
+                   "library": lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=mask, enable_gqa=K != H)}
+            other = {n: device_ms(fn, iters=5, warmup=1)[0]
+                     for n, fn in fns.items()}
+            res["ms"][case], res["event_ms"][case] = ms, ev
+            res["bound_ms"][case] = bound_ms
+            res["plain_ms"][case] = other["plain"]
+            res["library_ms"][case] = other["library"]
+            print(f"decode_attn vs plain [{case}] B={B} S_max={S} H={H} K={K} "
+                  f"hd={hd} bf16, {live} live keys, plan (gb, groups, "
+                  f"nsplit, chunk) {plan}: max_abs_err {float(diff.max()):.3g}"
+                  f" (tol {DECODE_TOLS[torch.bfloat16]} abs, rel); device "
+                  f"ms per call (profiler, "
+                  f"20 calls) {ms:.6f} ("
+                  + ", ".join(f"{a} {b:.6f}" for a, b in sorted(by.items()))
+                  + f"), event ms {ev:.6f}; bound_ms {bound_ms:.6f} (bytes: "
+                  f"{nbytes} B; the FP32 FMAs {flops / PEAK_FP32 * 1e3:.6f} ms"
+                  f"), {100 * bound_ms / ms:.2f}% of it; plain "
+                  f"{other['plain']:.6f}, library (SDPA, a length mask) "
+                  f"{other['library']:.6f}" + (" ok" if ok else " MISMATCH"),
+                  flush=True)
+            if not ok:
+                fail(f"the decode-attention kernel disagrees with the plain "
+                     f"version at {case}")
+        del q, k, v, out, want, mask, qt, kt, vt, fns
+        # the same shape once in fp32, at the drawn lengths: a boundary or
+        # combine error of the size of one tile's keys shows far above 1e-5
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((B, 1, H, hd), (B, S, K, hd), (B, S, K, hd)))
+        out = decode_attention(q, k, v, drawn)
+        torch.cuda.synchronize()
+        diff, ok = agrees(out, reference_decode_attention(q, k, v, drawn))
+        res["fp32_errors"][name] = float(diff.max())
+        print(f"decode_attn vs plain [{name} drawn] fp32: max_abs_err "
+              f"{float(diff.max()):.3g} (tol {DECODE_TOLS[torch.float32]} "
+              "abs, rel)" + (" ok" if ok else " MISMATCH"), flush=True)
+        if not ok:
+            fail(f"the decode-attention kernel disagrees with the plain "
+                 f"version in fp32 at {name}")
+        del q, k, v, out, diff
     torch.cuda.empty_cache()
     return res
 
@@ -2150,8 +2268,10 @@ def serve_phase(dev: torch.device, port_kernels: set,
     """Phases 4 and 5; returns each kernel's launches by served model and
     keeps minicpm-2b's greedy tokens and first prompt's logits in
     ``phase5``."""
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.distributed.roofline import H100_SXM
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel
     from repro_torch.kernels.moe_grouped import kernel as moe_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -2169,7 +2289,8 @@ def serve_phase(dev: torch.device, port_kernels: set,
         print(sp.schedule.describe(), flush=True)
 
     # 5. serve at full width (and depth, but for DEPTH_CUTS) -------------------------
-    counters = {"flash": kernel, "ssd": ssd_kernel, "moe": moe_kernel}
+    counters = {"flash": kernel, "ssd": ssd_kernel, "moe": moe_kernel,
+                "decode_attn": da_kernel}
     launches = {name: {} for name in counters}
     for arch in SERVED:
         published = get_config(arch)
@@ -2188,15 +2309,27 @@ def serve_phase(dev: torch.device, port_kernels: set,
             "moe": kinds.count("E")}
         for mod in counters.values():
             mod.reset_launch_count()
-        res = run_serving(cfg, device="cuda", requests=REQUESTS,
-                          prompt_len=PROMPT_LEN, max_new=NEW_TOKENS,
-                          max_batch=MAX_BATCH, seed=SEED)
+        obs.reset_metrics()
+        obs.enable_metrics(True)
+        try:
+            res = run_serving(cfg, device="cuda", requests=REQUESTS,
+                              prompt_len=PROMPT_LEN, max_new=NEW_TOKENS,
+                              max_batch=MAX_BATCH, seed=SEED)
+            decode_calls = obs.snapshot().get(
+                "attn.decode_kernel_calls", {}).get("value", 0)
+        finally:
+            obs.disable_metrics()
+            obs.reset_metrics()
         counts = {name: mod.launch_count() for name, mod in counters.items()}
         expected = {name: n * REQUESTS for name, n in per_prefill.items()}
         # the MoE also runs in the decode step, which the engine calls
         # eagerly GRAPH_WARMUP times and once more in the capture at its
-        # construction; the graph's replays make no call
+        # construction; the graph's replays make no call.  So does the
+        # decode attention, once in each layer that holds a K/V cache (the
+        # layers flash runs in a prefill; whisper's cross-attention, which
+        # takes no lengths, stays plain)
         expected["moe"] = per_prefill["moe"] * (REQUESTS + GRAPH_WARMUP + 1)
+        expected["decode_attn"] = per_prefill["flash"] * (GRAPH_WARMUP + 1)
         for name, n in counts.items():
             launches[name][arch] = n
         done = res["done"]
@@ -2222,9 +2355,15 @@ def serve_phase(dev: torch.device, port_kernels: set,
             "flash_launches": counts["flash"],
             "ssd_launches": counts["ssd"],
             "moe_launches": counts["moe"],
+            "decode_attn_launches": counts["decode_attn"],
+            "decode_kernel_calls": decode_calls,
             "expected_launches": expected}}), flush=True)
         if counts != expected:
             fail(f"{arch}: kernel launches {counts}, expected {expected}")
+        if decode_calls != expected["decode_attn"]:
+            fail(f"{arch}: attn.decode_kernel_calls {decode_calls}, not the "
+                 f"{expected['decode_attn']} attention layers' calls at the "
+                 "decode graph's warm-up and capture")
         if len(done) != REQUESTS or any(len(r.output) != NEW_TOKENS
                                         for r in done):
             fail(f"{arch}: not every request finished with its tokens")
@@ -3831,6 +3970,7 @@ def main() -> int:
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE / "src"))
+    from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.flash_attention import kernel, ops
     from repro_torch.kernels.flash_attention.ref import reference_attention
     from repro_torch.kernels.moe_grouped import kernel as moe_kernel
@@ -3867,6 +4007,7 @@ def main() -> int:
     # 2. build: one nvcc per source, started together ---------------------------
     sources = {"flash_fwd.cu": kernel.build, "ssd_fwd.cu": ssd_kernel.build,
                "moe_grouped.cu": moe_kernel.build,
+               "decode_attn.cu": da_kernel.build,
                "sweep_scan.cu": sweep_kernel.build,
                "stream_ops.cu": stream_kernel.build,
                "chain_probe.cu": build_chain_probe}
@@ -4166,6 +4307,9 @@ def main() -> int:
 
     # 3c. the hybrid_moe kernels at nemotron-3-nano-30b-a3b's widths --------------
     moe_res = hybrid_moe_kernels(dev, gen)
+
+    # 3d. the split-KV decode-attention kernel at the cells' decode shapes ------
+    da_res = decode_attention_kernels(dev, gen)
     phase_time("3 kernels vs plain")
 
     # 4-5. plan, and serve at full width ------------------------------------------
@@ -4288,6 +4432,24 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "hmma": hmma["moe_grouped.cu"],
+    }, {
+        "name": "decode_attention_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                  "decode_attn.cu",
+        "replaces": None,
+        "launches": launch_total(launches["decode_attn"]),
+        "launches_by_path": launches["decode_attn"],
+        "max_abs_err_by_case": da_res["errors"],
+        "fp32_max_abs_err_by_shape": da_res["fp32_errors"],
+        "ms": da_res["ms"]["minicpm-2b 16 x 4136 full"],
+        "kernel_ms_by_case": da_res["ms"],
+        "event_ms_by_case": da_res["event_ms"],
+        "plain_ms_by_case": da_res["plain_ms"],
+        "bound_ms_by_case": da_res["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms_by_case": da_res["library_ms"],
+        "hmma": hmma["decode_attn.cu"],
     }, sweep_entry, *stream_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

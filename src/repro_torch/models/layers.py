@@ -4,9 +4,12 @@ SwiGLU and GELU MLPs, embeddings.
 Plain functions over parameter dicts with the reference's key names.
 Projection weights are in ``nn.Linear``'s (out, in) layout and applied with
 ``F.linear``; causal attention over a prompt goes to the flash kernel
-(:func:`repro_torch.kernels.flash_attention.ops.flash_attention`); decode
-against a cache, non-causal (encoder) attention and cross-attention stay
-plain tensor code, as the reference runs them outside Pallas.
+(:func:`repro_torch.kernels.flash_attention.ops.flash_attention`); decode,
+one query against a cache up to each sequence's length, to the split-KV
+decode kernel (:func:`repro_torch.kernels.decode_attention.ops.
+decode_attention`), which reads the cache where it lies; non-causal
+(encoder) attention and cross-attention stay plain tensor code, as the
+reference runs them outside Pallas.
 
 Under a mesh with a tp axis (``env.tp_shards``) each rank holds its shard
 (``distributed/sharding.py``): attention keeps its block of query heads and
@@ -35,7 +38,9 @@ from ..distributed.collectives import (copy_to, gather,
                                        gather_from, reduce_from, scatter_sum,
                                        split_to)
 from ..distributed.sharding import kv_heads, kv_map
+from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
+from ..obs import metrics as _obs_metrics
 from .common import Env, checkpointed, dense_init, leaf, zeros
 
 Params = Dict[str, Any]
@@ -154,9 +159,11 @@ def _mha(env: Env, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_offset``: (B,) absolute position of q[:,0].  ``kv_len``: (B,) valid
     KV length (continuous batching).  Causal attention over more than one
-    query goes to the flash kernel; the rest (decode, the encoder) is plain
-    tensor code, as is everything on meta tensors (a dry run, which
-    launches no kernel, as the reference's dry run lowers no Pallas).  With
+    query goes to the flash kernel, one query over a cache with its
+    lengths (:func:`_to_decode_op`) to the decode kernel; the rest (the
+    encoder, cross-attention, training) is plain tensor code, as is
+    everything on meta tensors (a dry run, which launches no kernel, as the
+    reference's dry run lowers no Pallas).  With
     ``env.attn_q_chunk`` the plain attention runs query chunk by query
     chunk, each checkpointed under grad (the reference's scan over chunks
     with ``jax.checkpoint``): the live score tensor shrinks by the chunk
@@ -164,6 +171,13 @@ def _mha(env: Env, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     if causal and q.shape[1] > 1 and q.device.type != "meta":
         return flash_attention(q, k, v, q_offset=q_offset)
+    if _to_decode_op(q, k, v, causal=causal, kv_len=kv_len):
+        if _obs_metrics.REGISTRY.enabled:
+            _obs_metrics.counter("attn.decode_kernel_calls",
+                                 "Decode attention calls sent to the split-KV "
+                                 "op (its plain version off the card).",
+                                 "calls").inc()
+        return decode_attention(q, k, v, kv_len)
     cq = env.attn_q_chunk
     B, Sq = q.shape[:2]
     if cq and Sq > cq and Sq % cq == 0:
@@ -183,6 +197,17 @@ def _mha(env: Env, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return torch.cat(outs, dim=1)
     return _mha_dense(env, q, k, v, causal=causal, q_offset=q_offset,
                       kv_len=kv_len)
+
+
+def _to_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, kv_len: Optional[torch.Tensor]) -> bool:
+    """Whether :func:`_mha` sends a call to the decode op: one query over
+    keys masked by their lengths, not causal, on real tensors (not meta),
+    and no gradient wanted of q, k or v."""
+    wanted = torch.is_grad_enabled() and any(t.requires_grad
+                                             for t in (q, k, v))
+    return (q.shape[1] == 1 and kv_len is not None and not causal
+            and q.device.type != "meta" and not wanted)
 
 
 def _mha_dense(env: Env, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
