@@ -27,7 +27,8 @@ import torch.utils.checkpoint
 
 from ..distributed.collectives import gather
 from ..distributed.mesh import Mesh
-from ..distributed.sharding import Index, fsdp_dim
+from ..distributed.sharding import (Index, fsdp_dim, local_cache_index,
+                                    local_index)
 
 Params = Dict[str, Any]
 DeviceLike = Union[str, torch.device, None]
@@ -208,6 +209,27 @@ def fsdp_gather(env: Env, cfg, tree, prefix: str, skip: Sequence[str] = ()):
             return node
         return gather(node, group, where[0])
     return walk(tree, "")
+
+
+def shard_kw(cfg, env: Optional[Env], device: torch.device,
+             dtype: torch.dtype, fsdp: bool = False) -> Dict[str, Any]:
+    """An initializer's keywords: under a mesh, with the rank's
+    ``local_index`` of every leaf (:func:`leaf`); ``fsdp``: the
+    training layout (also split over the batch axes)."""
+    kw: Dict[str, Any] = dict(device=device, dtype=dtype)
+    if env is not None and env.mesh is not None:
+        batch = tuple(env.batch_axes) if fsdp else ()
+        kw.update(prefix="", shard=lambda path, shape: local_index(
+            cfg, env.mesh, path, shape, batch_axes=batch))
+    return kw
+
+
+def local_zeros(cfg, env: Env, name: str, shape, dtype) -> torch.Tensor:
+    """Zeros of this rank's part of the cache entry ``name`` of full
+    ``shape`` (``sharding.local_cache_index``)."""
+    index = local_cache_index(cfg, env, name, shape)
+    return torch.zeros(_local_shape(shape, index), dtype=dtype,
+                       device=env.device)
 
 
 # ---------------------------------------------------------------------------

@@ -45,11 +45,10 @@ import torch
 from ..configs.base import ModelConfig
 from ..distributed.collectives import copy_to
 from ..distributed.sharding import local_batch
-from .common import (Env, embed_init, fsdp_gather, layer_call, leaf, ones,
-                     resolve_device, under, zeros)
+from .common import (Env, embed_init, fsdp_gather, layer_call, leaf,
+                     local_zeros, ones, resolve_device, shard_kw, under, zeros)
 from .layers import (_linear, attention_block, embed, gelu_mlp,
                      init_attention, init_gelu_mlp, layer_norm, lm_head)
-from .transformer import local_zeros, shard_kw
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]

@@ -81,7 +81,6 @@ from ..distributed.collectives import (all_gather, all_reduce, copy_to,
                                        exchange, gather_from, reduce_from,
                                        split_to)
 from ..kernels.moe_grouped.ops import grouped_relu2
-from ..obs import metrics as _obs_metrics
 from .common import Env, dense_init, leaf, under, zeros
 from .layers import _linear, init_swiglu, seq_parallel, swiglu
 
@@ -354,10 +353,6 @@ def moe_dropless(env: Env, p: Params, x: torch.Tensor, *, num_experts: int,
                          device=flat.device).scatter_add_(
         0, flat, torch.ones_like(flat))
     offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    if _obs_metrics.REGISTRY.enabled:     # known from the shapes alone
-        _obs_metrics.counter("moe.routed_rows",
-                             "Rows the dropless MoE routed (tokens x k).",
-                             "rows").inc(N * k)
     routed = grouped_relu2(xf, order // k, order, w.reshape(-1)[order],
                            offsets, p["wu"].to(x.dtype), p["wd"].to(x.dtype))
     y = routed.view(N, k, D).sum(dim=1) + relu2_mlp(p["shared"], xf).float()

@@ -65,22 +65,19 @@ def cfg_dims(cfg) -> Dict[str, int]:
                     d_inner=cfg.ssm_inner)
 
 
-def init_ssm(gen: torch.Generator, d_model: int, *, expand: int,
-             head_dim: int, n_state: int, conv_width: int,
-             kw: Dict[str, Any], groups: int = 1, d_inner: int = 0
-             ) -> Params:
-    """The reference's distributions; ``in_proj``/``out_proj`` in (out, in)
-    layout for ``F.linear``, ``conv_w`` (W, d_conv) as the reference.
-    ``kw``: the ``device``/``dtype`` (and a rank's shard, ``common.leaf``);
-    ``groups``, ``d_inner``: as :func:`ssm_dims`."""
-    dims = ssm_dims(d_model, expand, head_dim, n_state, conv_width,
-                    groups=groups, d_inner=d_inner)
-    d_in, H = dims["d_inner"], dims["nheads"]
+def init_ssm(gen: torch.Generator, cfg, kw: Dict[str, Any]) -> Params:
+    """A Mamba2 block of ``cfg`` (:func:`cfg_dims`) with the reference's
+    distributions; ``in_proj``/``out_proj`` in (out, in) layout for
+    ``F.linear``, ``conv_w`` (W, d_conv) as the reference.  ``kw``: the
+    ``device``/``dtype`` (and a rank's shard, ``common.leaf``)."""
+    dims = cfg_dims(cfg)
+    D, d_in, H = cfg.d_model, dims["d_inner"], dims["nheads"]
     device = kw["device"]
-    in_proj = dense_init(gen, (2 * d_in + 2 * groups * n_state + H, d_model),
-                         **leaf(kw, "in_proj"))
-    out_proj = dense_init(gen, (d_model, d_in), **leaf(kw, "out_proj"))
-    conv_w = dense_init(gen, (conv_width, dims["d_conv"]), in_axis=0,
+    in_proj = dense_init(
+        gen, (2 * d_in + 2 * dims["groups"] * dims["n_state"] + H, D),
+        **leaf(kw, "in_proj"))
+    out_proj = dense_init(gen, (D, d_in), **leaf(kw, "out_proj"))
+    conv_w = dense_init(gen, (dims["conv_width"], dims["d_conv"]), in_axis=0,
                         **leaf(kw, "conv_w"))
     u = torch.rand((H,), generator=gen, dtype=torch.float32,
                    device=gen.device).to(device)

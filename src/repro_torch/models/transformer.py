@@ -1,15 +1,20 @@
-"""Decoder LM: the dense, moe, vlm, ssm and hybrid families.
+"""Decoder LM: the dense, moe, vlm, ssm, hybrid and hybrid_moe families.
 
-* dense, vlm : pre-norm GQA attention + SwiGLU per layer; vlm's prefill
-               takes ``patch_embeds`` in place of its first embeddings
-* moe        : pre-norm GQA attention + the MoE FFN (``models/moe.py``)
-* ssm        : Mamba2 (SSD) block per layer (mamba2-370m)
-* hybrid     : Mamba2 backbone + ONE weight-shared attention+SwiGLU block
-               applied after every ``attn_period``-th layer (zamba2)
-* hybrid_moe : one pre-norm mixer a layer, ``x + mixer(norm(x))``, its kind
-               by ``cfg.layer_pattern``: M a Mamba2 block (grouped B/C,
-               gate-first norm), E the dropless MoE (``moe.moe_dropless``),
-               * GQA attention without RoPE (Nemotron-H); one device only
+One walker (``_layers``) runs every family's layers in every mode, a kind
+a letter of ``cfg.layer_kinds``; a table gives each kind its init, its
+apply, the cache entries it owns (a row a layer of the kind) and its span:
+
+* ``*`` (``k``/``v``): dense, vlm and moe's pre-norm GQA attention + FFN
+  block (SwiGLU; moe: the capacity MoE of ``models/moe.py``); hybrid_moe's
+  pre-norm attention mixer alone, without RoPE (Nemotron-H)
+* ``M`` (``state``/``conv``): a pre-norm Mamba2 (SSD) block, every layer of
+  ssm and hybrid; hybrid_moe's with grouped B/C and the gate-first norm
+* ``E`` (``route``): hybrid_moe's pre-norm dropless MoE; one device only
+
+The hybrid (zamba2) applies ONE weight-shared attention+SwiGLU block
+(``shared_k``/``shared_v``) after every ``attn_period``-th layer, a hook of
+the walker.  vlm's prefill takes ``patch_embeds`` in place of its first
+embeddings.
 
 Entry points:
 
@@ -20,15 +25,15 @@ Entry points:
 * ``init_cache(cfg, batch, max_len, env, dtype)`` -> cache
 
 Params: ``embed`` (V, D), ``blocks`` — a list with one dict per layer
-(dense, vlm: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``, ``mlp.{wg,wu,wd}``;
-moe: ``moe.{router,wg,wu,wd[,shared]}`` in place of ``mlp``; ssm and
-hybrid: ``ln1``, ``ssm.{in_proj,conv_w,conv_b,A_log,D,dt_bias,norm,
-out_proj}``; hybrid_moe: ``ln1`` and one of ``ssm``, ``moe.{router,bias,
-wu,wd,shared.{wu,wd}}`` or ``attn``), the hybrid's ``shared``
-attention+MLP block, ``final_norm``
-and, untied, ``head`` (V, D); projections in (out, in) layout.  The layer
-stack is a Python loop; the training ``forward`` checkpoints each layer body
-when ``env.remat``.  The audio family is ``models/encdec.py``'s.
+(the attention + FFN block: ``ln1``, ``ln2``, ``attn.{wq,wk,wv,wo}``,
+``mlp.{wg,wu,wd}``, moe: ``moe.{router,wg,wu,wd[,shared]}`` in place of
+``mlp``; a mixer layer: ``ln1`` and one of ``ssm.{in_proj,conv_w,conv_b,
+A_log,D,dt_bias,norm,out_proj}``, ``moe.{router,bias,wu,wd,shared.{wu,
+wd}}`` or ``attn``), the hybrid's ``shared`` attention+MLP block,
+``final_norm`` and, untied, ``head`` (V, D); projections in (out, in)
+layout.  The layer stack is a Python loop; the training ``forward``
+checkpoints each layer body when ``env.remat``.  The audio family is
+``models/encdec.py``'s.
 
 Under a mesh (``env.mesh``) every entry point works on this rank's shard:
 ``init(..., env=env)`` draws only the rank's part of each leaf
@@ -56,17 +61,19 @@ index) and ``model.logits``.  ``forward`` opens none.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..distributed.collectives import split_to
-from ..distributed.sharding import local_batch, local_cache_index, local_index
+from ..distributed.sharding import local_batch
 from ..obs.trace import span as _obs_span
 from .common import (Env, dense_init, embed_init, fsdp_gather, layer_call,
-                     leaf, resolve_device, under, zeros)
+                     leaf, local_zeros, resolve_device, shard_kw, under,
+                     zeros)
 from .layers import (attention_block, embed, init_attention, init_swiglu,
                      lm_head, replicated_weight, rms_norm, swiglu)
 from .moe import init_moe, init_moe_dropless, moe_dropless, moe_ffn
@@ -76,7 +83,9 @@ Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
 _FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "hybrid_moe")
-_SSM_FAMILIES = ("ssm", "hybrid")
+
+#: the type of hybrid_moe's ``route`` cache entry (expert ids)
+ROUTE_DTYPE = torch.int16
 
 
 def _check_family(cfg: ModelConfig, env: Optional[Env] = None) -> None:
@@ -89,17 +98,40 @@ def _check_family(cfg: ModelConfig, env: Optional[Env] = None) -> None:
                          "device; sharding it over a mesh is not implemented")
 
 
-def _kind_index(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
-    """hybrid_moe: each layer's kind and its index among the layers of its
-    kind (its row of the cache: ``state``/``conv`` for M, ``k``/``v`` for
-    *)."""
-    pat = cfg.layer_pattern
-    return tuple((kind, pat[:i].count(kind)) for i, kind in enumerate(pat))
+def _shared_period(cfg: ModelConfig) -> int:
+    """The hybrid's shared block runs after every this-many-th layer, its
+    (idx + 1) // period - 1-th application after layer ``idx``; 0: no
+    shared block."""
+    return cfg.attn_period if cfg.family == "hybrid" else 0
+
+
+def _rows(cache: Optional[Cache], names: Tuple[str, ...], at: int):
+    """Row ``at`` of each cache entry in ``names``; None without a cache."""
+    return None if cache is None else tuple(cache[n][at] for n in names)
 
 
 # ---------------------------------------------------------------------------
-# Init
+# The layer kinds
 # ---------------------------------------------------------------------------
+
+class _Kind(NamedTuple):
+    """A kind of layer.  ``init(cfg, gen, kw)`` -> its params;
+    ``apply(kind, env, cfg, params, x, positions, cache, at, kv_len)`` ->
+    (x, aux, its fresh rows of the entries it owns): ``aux`` is a MoE
+    block's load-balance loss, else None; ``cache`` is given in decode
+    only, where apply reads its rows ``at`` (attention also writes the
+    token's K/V in place)."""
+    span: str
+    cache: Tuple[str, ...]          # the entries it owns, a row a layer
+    init: Callable
+    apply: Callable
+    attrs: Callable = lambda cfg, x: {}     # its span's attributes
+
+
+def _init_attn(gen: torch.Generator, cfg: ModelConfig, kw: Dict[str, Any]):
+    return init_attention(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim, cfg.qkv_bias, kw)
+
 
 def _init_attn_ffn(cfg: ModelConfig, gen: torch.Generator,
                    kw: Dict[str, Any]) -> Params:
@@ -107,9 +139,7 @@ def _init_attn_ffn(cfg: ModelConfig, gen: torch.Generator,
     the hybrid's shared block."""
     D = cfg.d_model
     p: Params = {"ln1": zeros((D,), **leaf(kw, "ln1")),
-                 "attn": init_attention(gen, D, cfg.num_heads,
-                                        cfg.num_kv_heads, cfg.head_dim,
-                                        cfg.qkv_bias, under(kw, "attn")),
+                 "attn": _init_attn(gen, cfg, under(kw, "attn")),
                  "ln2": zeros((D,), **leaf(kw, "ln2"))}
     if cfg.family == "moe":
         p["moe"] = init_moe(gen, D, cfg.d_ff, cfg.num_experts,
@@ -119,89 +149,13 @@ def _init_attn_ffn(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
-def _init_pattern_layer(cfg: ModelConfig, gen: torch.Generator,
-                        kw: Dict[str, Any], kind: str) -> Params:
-    """A hybrid_moe layer: its norm and its mixer of ``kind``."""
-    D = cfg.d_model
-    p: Params = {"ln1": zeros((D,), **leaf(kw, "ln1"))}
-    if kind == "M":
-        p["ssm"] = init_ssm(gen, D, expand=cfg.ssm_expand,
-                            head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state,
-                            conv_width=cfg.ssm_conv_width,
-                            kw=under(kw, "ssm"), groups=cfg.ssm_groups,
-                            d_inner=cfg.ssm_inner)
-    elif kind == "E":
-        p["moe"] = init_moe_dropless(gen, D, cfg.d_ff, cfg.num_experts,
-                                     cfg.shared_width, under(kw, "moe"))
-    else:
-        p["attn"] = init_attention(gen, D, cfg.num_heads, cfg.num_kv_heads,
-                                   cfg.head_dim, cfg.qkv_bias,
-                                   under(kw, "attn"))
-    return p
-
-
-def shard_kw(cfg: ModelConfig, env: Optional[Env], device: torch.device,
-             dtype: torch.dtype, fsdp: bool = False) -> Dict[str, Any]:
-    """An initializer's keywords: under a mesh, with the rank's
-    ``local_index`` of every leaf (``common.leaf``); ``fsdp``: the
-    training layout (also split over the batch axes)."""
-    kw: Dict[str, Any] = dict(device=device, dtype=dtype)
-    if env is not None and env.mesh is not None:
-        batch = tuple(env.batch_axes) if fsdp else ()
-        kw.update(prefix="", shard=lambda path, shape: local_index(
-            cfg, env.mesh, path, shape, batch_axes=batch))
-    return kw
-
-
-def init(cfg: ModelConfig, gen: torch.Generator, *,
-         device: Optional[torch.device] = None,
-         dtype: torch.dtype = torch.float32,
-         env: Optional[Env] = None, fsdp: bool = False) -> Params:
-    """Random weights from ``gen`` with the reference's distributions:
-    truncated normal / sqrt(fan_in) for projections, normal x 0.02 for the
-    embedding, zeros for the (1 + scale) norm gains, the reference's
-    ``A_log``/``D``/``dt_bias`` for Mamba2 blocks.  Under ``env``'s mesh,
-    only this rank's shard of each leaf is drawn (with ``fsdp``, the
-    training layout's)."""
-    _check_family(cfg, env)
-    dev = resolve_device(device)
-    D, V = cfg.d_model, cfg.vocab_size
-    kw = shard_kw(cfg, env, dev, dtype, fsdp)
-    p: Params = {"embed": embed_init(gen, (V, D), **leaf(kw, "embed")),
-                 "blocks": []}
-    for i in range(cfg.num_layers):
-        bkw = under(kw, f"blocks/{i}")
-        if cfg.family == "hybrid_moe":
-            p["blocks"].append(_init_pattern_layer(cfg, gen, bkw,
-                                                   cfg.layer_pattern[i]))
-        elif cfg.family in _SSM_FAMILIES:
-            p["blocks"].append({"ln1": zeros((D,), **leaf(bkw, "ln1")),
-                                "ssm": init_ssm(
-                gen, D, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
-                n_state=cfg.ssm_state, conv_width=cfg.ssm_conv_width,
-                kw=under(bkw, "ssm"))})
-        else:
-            p["blocks"].append(_init_attn_ffn(cfg, gen, bkw))
-    if cfg.family == "hybrid":
-        p["shared"] = _init_attn_ffn(cfg, gen, under(kw, "shared"))
-    p["final_norm"] = zeros((D,), **leaf(kw, "final_norm"))
-    if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, (V, D), **leaf(kw, "head"))
-    return p
-
-
-# ---------------------------------------------------------------------------
-# Blocks
-# ---------------------------------------------------------------------------
-
-def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
-                    positions: torch.Tensor, *,
-                    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                    kv_len: Optional[torch.Tensor] = None):
+def _attn_ffn_block(kind: _Kind, env: Env, cfg: ModelConfig, bp: Params,
+                    x: torch.Tensor, positions: torch.Tensor,
+                    cache: Optional[Cache], at: int,
+                    kv_len: Optional[torch.Tensor]):
     """Pre-norm attention + FFN: a dense, vlm or moe layer, or zamba2's
-    weight-shared block (the reference's ``_shared_block``).  Returns
-    (x, aux, new_kv): ``aux`` is the MoE layer's load-balance loss (None
-    for a SwiGLU block), which serving drops and ``forward`` averages."""
+    weight-shared block (the reference's ``_shared_block``)."""
+    kv_cache = _rows(cache, kind.cache, at)
     h = rms_norm(x, replicated_weight(env, bp["ln1"]), cfg.norm_eps)
     a, new_kv = attention_block(
         env, bp["attn"], h, num_heads=cfg.num_heads,
@@ -220,69 +174,162 @@ def _attn_ffn_block(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor,
     return x + f, aux, new_kv
 
 
-def _pattern_layer(env: Env, cfg: ModelConfig, bp: Params, kind: str,
-                   x: torch.Tensor, positions: torch.Tensor, *,
-                   cache: Optional[Cache] = None, at: int = 0,
-                   kv_len: Optional[torch.Tensor] = None):
-    """One hybrid_moe layer, ``x + mixer(rms_norm(x))``.  ``cache`` (decode):
-    the model's cache, this layer's row ``at`` of its kind updated in
-    place.  Returns (x, new cache entries: (state, conv) for M, (k, v)
-    for *, the chosen experts (B, S, k) for E)."""
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    if kind == "M":
-        st = None if cache is None else (cache["state"][at],
-                                         cache["conv"][at])
-        out, new = ssm_block(env, bp["ssm"], h, cfg, cache=st)
-    elif kind == "E":
-        out, new = moe_dropless(
-            env, bp["moe"], h, num_experts=cfg.num_experts,
-            experts_per_token=cfg.experts_per_token,
-            routed_scale=cfg.routed_scale)
-    else:
-        kv = None if cache is None else (cache["k"][at], cache["v"][at])
-        out, new = attention_block(
-            env, bp["attn"], h, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, positions=positions, kv_cache=kv,
-            kv_len=kv_len, use_rope=cfg.use_rope)
-    return x + out, new
+def _mixer_init(name: str, init: Callable) -> Callable:
+    """A mixer layer's init: its norm ``ln1``, then ``init(gen, cfg, kw)``
+    under ``name``."""
+    return lambda cfg, gen, kw: {
+        "ln1": zeros((cfg.d_model,), **leaf(kw, "ln1")),
+        name: init(gen, cfg, under(kw, name))}
 
 
-#: the type of hybrid_moe's ``route`` cache entry (expert ids)
-ROUTE_DTYPE = torch.int16
-
-#: the span of each hybrid_moe layer kind
-_KIND_SPAN = {"M": "block.ssm", "E": "block.moe", "*": "block.attn"}
+def _norm(env: Env, cfg: ModelConfig, bp: Params, x: torch.Tensor):
+    return rms_norm(x, replicated_weight(env, bp["ln1"]), cfg.norm_eps)
 
 
-def _pattern_stack(env: Env, cfg: ModelConfig, params: Params,
-                   x: torch.Tensor, positions: torch.Tensor, cache: Cache, *,
-                   decode: bool, kv_len: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
-    """The hybrid_moe layers in prefill (``decode`` False: each layer's
-    fresh state, conv and K/V written into ``cache``) or in decode
-    (``cache`` read and updated in place), each in its span; each MoE
-    layer's choice of experts goes into ``route`` at the tokens'
-    positions."""
-    B, S = x.shape[:2]
-    for bp, (kind, at) in zip(params["blocks"], _kind_index(cfg)):
-        attrs = ({"rows": x.shape[0] * S * cfg.experts_per_token}
-                 if kind == "E" else {})
-        with _obs_span(_KIND_SPAN[kind], **attrs):
-            x, new = _pattern_layer(env, cfg, bp, kind, x, positions,
-                                    cache=cache if decode else None, at=at,
-                                    kv_len=kv_len)
-            if kind == "M":
-                cache["state"][at], cache["conv"][at] = new
-            elif kind == "E" and decode:
-                cache["route"][at, torch.arange(B, device=x.device),
-                               positions[:, 0]] = new[:, 0].to(ROUTE_DTYPE)
-            elif kind == "E":
-                cache["route"][at, :, :S] = new.to(ROUTE_DTYPE)
-            elif not decode:
-                # the cache past the prompt stays zero
-                cache["k"][at, :, :S], cache["v"][at, :, :S] = new
-    return x
+def _ssm_layer(kind, env, cfg, bp, x, positions, cache, at, kv_len):
+    """``x + ssm(norm(x))``: fresh (state, conv) from the prompt, or the
+    token's recurrent update of its rows."""
+    h = _norm(env, cfg, bp, x)
+    s, new = ssm_block(env, bp["ssm"], h, cfg,
+                       cache=_rows(cache, kind.cache, at))
+    return x + s, None, new
+
+
+def _moe_layer(kind, env, cfg, bp, x, positions, cache, at, kv_len):
+    """``x + moe(norm(x))``; its row: the experts each token chose."""
+    y, ids = moe_dropless(env, bp["moe"], _norm(env, cfg, bp, x),
+                          num_experts=cfg.num_experts,
+                          experts_per_token=cfg.experts_per_token,
+                          routed_scale=cfg.routed_scale)
+    return x + y, None, (ids,)
+
+
+def _attn_layer(kind, env, cfg, bp, x, positions, cache, at, kv_len):
+    """``x + attention(norm(x))``, with or without RoPE."""
+    h = _norm(env, cfg, bp, x)
+    a, new = attention_block(
+        env, bp["attn"], h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        rope_theta=cfg.rope_theta, positions=positions,
+        kv_cache=_rows(cache, kind.cache, at), kv_len=kv_len,
+        use_rope=cfg.use_rope)
+    return x + a, None, new
+
+
+_ATTN_FFN = _Kind("block.attn_ffn", ("k", "v"), _init_attn_ffn,
+                  _attn_ffn_block)
+_SHARED = _Kind("block.shared", ("shared_k", "shared_v"), _init_attn_ffn,
+                _attn_ffn_block)
+#: the mixer layers ``x + mixer(norm(x))``, by letter
+_MIXERS = {
+    "M": _Kind("block.ssm", ("state", "conv"), _mixer_init("ssm", init_ssm),
+               _ssm_layer),
+    "E": _Kind("block.moe", ("route",), _mixer_init(
+        "moe", lambda gen, cfg, kw: init_moe_dropless(
+            gen, cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.shared_width,
+            kw)), _moe_layer, lambda cfg, x: {
+                "rows": x.shape[0] * x.shape[1] * cfg.experts_per_token}),
+    "*": _Kind("block.attn", ("k", "v"), _mixer_init("attn", _init_attn),
+               _attn_layer),
+}
+
+
+def _kinds(cfg: ModelConfig) -> Dict[str, _Kind]:
+    """The kind of each letter of ``cfg.layer_kinds``: every hybrid_moe
+    layer is a mixer; the attention families' ``*`` is the attention +
+    FFN block."""
+    if cfg.family == "hybrid_moe":
+        return _MIXERS
+    return {**_MIXERS, "*": _ATTN_FFN}
+
+
+def init(cfg: ModelConfig, gen: torch.Generator, *,
+         device: Optional[torch.device] = None,
+         dtype: torch.dtype = torch.float32,
+         env: Optional[Env] = None, fsdp: bool = False) -> Params:
+    """Random weights from ``gen`` with the reference's distributions:
+    truncated normal / sqrt(fan_in) for projections, normal x 0.02 for the
+    embedding, zeros for the (1 + scale) norm gains, the reference's
+    ``A_log``/``D``/``dt_bias`` for Mamba2 blocks.  Under ``env``'s mesh,
+    only this rank's shard of each leaf is drawn (with ``fsdp``, the
+    training layout's)."""
+    _check_family(cfg, env)
+    dev = resolve_device(device)
+    D, V = cfg.d_model, cfg.vocab_size
+    kw = shard_kw(cfg, env, dev, dtype, fsdp)
+    kinds = _kinds(cfg)
+    p: Params = {"embed": embed_init(gen, (V, D), **leaf(kw, "embed")),
+                 "blocks": [kinds[kind].init(cfg, gen,
+                                             under(kw, f"blocks/{i}"))
+                            for i, kind in enumerate(cfg.layer_kinds)]}
+    if _shared_period(cfg):
+        p["shared"] = _SHARED.init(cfg, gen, under(kw, "shared"))
+    p["final_norm"] = zeros((D,), **leaf(kw, "final_norm"))
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (V, D), **leaf(kw, "head"))
+    return p
+
+
+# ---------------------------------------------------------------------------
+# The walker
+# ---------------------------------------------------------------------------
+
+def _store(cache: Optional[Cache], names: Tuple[str, ...], at: int,
+           new, positions: torch.Tensor, decode: bool) -> None:
+    """The one place a layer's fresh rows enter the cache (none in the
+    training forward): Mamba2 ``state``/``conv`` whole; in prefill the
+    prompt's K/V and routes at ``[:, :S]``, the cache past the prompt left
+    zero as the reference's padding; in decode a token's routes at its
+    position (its K/V the attention wrote in place)."""
+    if cache is None:
+        return
+    for name, t in zip(names, new):
+        if name in ("state", "conv"):
+            cache[name][at] = t
+        elif not decode:
+            cache[name][at, :, :t.shape[1]] = t.to(cache[name].dtype)
+        elif name == "route":
+            cache[name][at, torch.arange(t.shape[0], device=t.device),
+                        positions[:, 0]] = t[:, 0].to(cache[name].dtype)
+
+
+def _layers(env: Env, cfg: ModelConfig, params: Params, x: torch.Tensor,
+            positions: torch.Tensor, *, cache: Optional[Cache] = None,
+            decode: bool = False, kv_len: Optional[torch.Tensor] = None):
+    """Every layer of ``cfg.layer_kinds`` in order, each followed by the
+    hybrid's shared block where it applies; a layer and its shared block
+    are one body of ``layer_call`` that gathers their weights
+    (``fsdp_gather``).  Without ``cache`` (the training forward) no span
+    opens.  With it each layer and shared block runs in its span: prefill
+    (``decode`` False) writes the fresh rows into ``cache``, decode reads
+    and updates them in place.  Returns (x, the MoE blocks' load-balance
+    losses)."""
+    kinds, period = _kinds(cfg), _shared_period(cfg)
+    span = ((lambda name, **attrs: contextlib.nullcontext())
+            if cache is None else _obs_span)
+    reads = cache if decode else None
+
+    def run(kind, bp, x, at):
+        with span(kind.span, **kind.attrs(cfg, x)):
+            x, aux, new = kind.apply(kind, env, cfg, bp, x, positions, reads,
+                                     at, kv_len)
+            _store(cache, kind.cache, at, new, positions, decode)
+        return x, aux
+
+    def body(x, bp, idx, kind, at):
+        x, aux = run(kind, fsdp_gather(env, cfg, bp, f"blocks/{idx}"), x, at)
+        if period and (idx + 1) % period == 0:
+            shared = fsdp_gather(env, cfg, params["shared"], "shared")
+            x, _ = run(_SHARED, shared, x, (idx + 1) // period - 1)
+        return x, aux
+
+    auxs, letters = [], cfg.layer_kinds
+    for idx, (bp, letter) in enumerate(zip(params["blocks"], letters)):
+        at = letters[:idx].count(letter)     # its row: its index in its kind
+        x, aux = layer_call(env, body, x, bp, idx, kinds[letter], at)
+        if aux is not None:
+            auxs.append(aux)
+    return x, auxs
 
 
 def _logits(env: Env, cfg: ModelConfig, params: Params,
@@ -344,68 +391,20 @@ def forward(env: Env, cfg: ModelConfig, params: Params,
     if env.seq_shard_activations:      # the rank's block of the sequence
         x = split_to(x, env.tp_group, 1)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    if cfg.family in _SSM_FAMILIES:
-        x = _ssm_stack_forward(env, cfg, params, x, positions)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    elif cfg.family == "hybrid_moe":
-        for bp, kind in zip(params["blocks"], cfg.layer_pattern):
-            x = layer_call(env, lambda x, bp, kind=kind: _pattern_layer(
-                env, cfg, bp, kind, x, positions)[0], x, bp)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    else:
-        def body(x, bp, i):
-            bp = fsdp_gather(env, cfg, bp, f"blocks/{i}")
-            x, aux, _ = _attn_ffn_block(env, cfg, bp, x, positions)
-            return x, aux
-        auxs = []
-        for i, bp in enumerate(params["blocks"]):
-            x, aux = layer_call(env, body, x, bp, i)
-            auxs.append(aux)
-        aux = (torch.stack(auxs).mean() if cfg.family == "moe" else
-               torch.zeros((), dtype=torch.float32, device=x.device))
+    x, auxs = _layers(env, cfg, params, x, positions)
+    aux = (torch.stack(auxs).mean() if auxs else
+           torch.zeros((), dtype=torch.float32, device=x.device))
     return _logits(env, cfg, params, x, gather_vocab=False), aux
-
-
-def _ssm_stack_forward(env: Env, cfg: ModelConfig, params: Params,
-                       x: torch.Tensor, positions: torch.Tensor
-                       ) -> torch.Tensor:
-    """Mamba2 layers, each followed by the hybrid's shared block where it
-    applies; a layer and its shared block are one checkpointed body."""
-    def body(x, bp, idx):
-        bp = fsdp_gather(env, cfg, bp, f"blocks/{idx}")
-        h = rms_norm(x, replicated_weight(env, bp["ln1"]), cfg.norm_eps)
-        s, _ = ssm_block(env, bp["ssm"], h, cfg)
-        x = x + s
-        if _shared_applies(cfg, idx):
-            shared = fsdp_gather(env, cfg, params["shared"], "shared")
-            x, _, _ = _attn_ffn_block(env, cfg, shared, x, positions)
-        return x
-    for idx, bp in enumerate(params["blocks"]):
-        x = layer_call(env, body, x, bp, idx)
-    return x
 
 
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
 
-def _n_shared(cfg: ModelConfig) -> int:
-    return cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
-
-
-def local_zeros(cfg: ModelConfig, env: Env, name: str, shape, dtype
-                ) -> torch.Tensor:
-    """Zeros of this rank's part of the cache entry ``name`` of full
-    ``shape`` (``sharding.local_cache_index``)."""
-    index = local_cache_index(cfg, env, name, shape)
-    local = tuple(n if ix is None else len(ix) for n, ix in zip(shape, index))
-    return torch.zeros(local, dtype=dtype, device=env.device)
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
                dtype: torch.dtype = torch.bfloat16) -> Cache:
-    """Dense, vlm, moe: ``k``/``v`` (L, B, max_len, K, hd).  ssm/hybrid: ``state``
-    (L, B, H, hd, N), fp32 whatever ``dtype`` is, and ``conv``
+    """Dense, vlm, moe: ``k``/``v`` (L, B, max_len, K, hd).  ssm/hybrid:
+    ``state`` (L, B, H, hd, N), fp32 whatever ``dtype`` is, and ``conv``
     (L, B, W-1, d_conv); the hybrid adds ``shared_k``/``shared_v``
     (L // attn_period, B, max_len, K, hd).  hybrid_moe: ``state`` and
     ``conv`` for its M layers only, ``k``/``v`` for its * layers only, and
@@ -415,8 +414,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
     its index among the layers of its kind.  ``batch`` is the
     global batch; under a mesh each entry is this rank's part."""
     _check_family(cfg, env)
-    L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    kinds = cfg.layer_kinds
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    kinds, period = cfg.layer_kinds, _shared_period(cfg)
     shapes = {}
     if "*" in kinds:
         shapes["k"] = shapes["v"] = ((kinds.count("*"), batch, max_len, K,
@@ -428,9 +427,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, env: Env,
                             dims["n_state"]), torch.float32)
         shapes["conv"] = ((L, batch, cfg.ssm_conv_width - 1,
                            dims["d_conv"]), dtype)
-        if cfg.family == "hybrid":
-            shapes["shared_k"] = shapes["shared_v"] = (
-                (_n_shared(cfg), batch, max_len, K, hd), dtype)
+    if period:
+        shapes["shared_k"] = shapes["shared_v"] = (
+            (cfg.num_layers // period, batch, max_len, K, hd), dtype)
     if "E" in kinds:
         shapes["route"] = ((kinds.count("E"), batch, max_len,
                             cfg.experts_per_token), ROUTE_DTYPE)
@@ -458,50 +457,9 @@ def prefill(env: Env, cfg: ModelConfig, params: Params,
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     with _obs_span("model.cache_init"):
         cache = init_cache(cfg, B_all, max_len, env, dtype=x.dtype)
-    if cfg.family in _SSM_FAMILIES:
-        x = _ssm_stack_prefill(env, cfg, params, x, positions, cache)
-    elif cfg.family == "hybrid_moe":
-        x = _pattern_stack(env, cfg, params, x, positions, cache,
-                           decode=False)
-    else:
-        for i, bp in enumerate(params["blocks"]):
-            with _obs_span("block.attn_ffn"):
-                x, _, (k, v) = _attn_ffn_block(env, cfg, bp, x, positions)
-                # the cache past the prompt stays zero, as the reference's
-                # padding
-                cache["k"][i, :, :S] = k
-                cache["v"][i, :, :S] = v
+    x, _ = _layers(env, cfg, params, x, positions, cache=cache)
     with _obs_span("model.logits"):
         return _logits(env, cfg, params, x[:, -1:]), cache
-
-
-def _shared_applies(cfg: ModelConfig, idx: int) -> bool:
-    """The hybrid's shared block runs after layer ``idx`` when
-    (idx + 1) % attn_period == 0, as its (idx + 1) // attn_period - 1-th
-    application."""
-    return cfg.family == "hybrid" and (idx + 1) % cfg.attn_period == 0
-
-
-def _ssm_stack_prefill(env: Env, cfg: ModelConfig, params: Params,
-                       x: torch.Tensor, positions: torch.Tensor,
-                       cache: Cache) -> torch.Tensor:
-    """Mamba2 layers (and the hybrid's shared block), filling ``cache``."""
-    S = x.shape[1]
-    for idx, bp in enumerate(params["blocks"]):
-        with _obs_span("block.ssm"):
-            h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            s, (st, conv) = ssm_block(env, bp["ssm"], h, cfg)
-            x = x + s
-            cache["state"][idx] = st
-            cache["conv"][idx] = conv
-        if _shared_applies(cfg, idx):
-            app = (idx + 1) // cfg.attn_period - 1
-            with _obs_span("block.shared"):
-                x, _, (k, v) = _attn_ffn_block(env, cfg, params["shared"], x,
-                                               positions)
-                cache["shared_k"][app, :, :S] = k
-                cache["shared_v"][app, :, :S] = v
-    return x
 
 
 # ---------------------------------------------------------------------------
@@ -522,41 +480,7 @@ def decode_step(env: Env, cfg: ModelConfig, params: Params, cache: Cache,
     tokens, pos = batch["tokens"], batch["pos"]
     x = embed(env, params["embed"], tokens, cfg.vocab_size)
     positions = pos[:, None].long()
-    kv_len = pos.long() + 1
-    if cfg.family in _SSM_FAMILIES:
-        x = _ssm_stack_decode(env, cfg, params, cache, x, positions, kv_len)
-    elif cfg.family == "hybrid_moe":
-        x = _pattern_stack(env, cfg, params, x, positions, cache,
-                           decode=True, kv_len=kv_len)
-    else:
-        for i, bp in enumerate(params["blocks"]):
-            with _obs_span("block.attn_ffn"):
-                x, _, _ = _attn_ffn_block(
-                    env, cfg, bp, x, positions,
-                    kv_cache=(cache["k"][i], cache["v"][i]), kv_len=kv_len)
+    x, _ = _layers(env, cfg, params, x, positions, cache=cache, decode=True,
+                   kv_len=pos.long() + 1)
     with _obs_span("model.logits"):
         return _logits(env, cfg, params, x), cache
-
-
-def _ssm_stack_decode(env: Env, cfg: ModelConfig, params: Params,
-                      cache: Cache, x: torch.Tensor, positions: torch.Tensor,
-                      kv_len: torch.Tensor) -> torch.Tensor:
-    """One token through the Mamba2 layers (and the hybrid's shared
-    block); the state, conv and shared KV caches are updated in place."""
-    for idx, bp in enumerate(params["blocks"]):
-        with _obs_span("block.ssm"):
-            h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            s, (st, conv) = ssm_block(env, bp["ssm"], h, cfg,
-                                      cache=(cache["state"][idx],
-                                             cache["conv"][idx]))
-            x = x + s
-            cache["state"][idx] = st
-            cache["conv"][idx] = conv
-        if _shared_applies(cfg, idx):
-            app = (idx + 1) // cfg.attn_period - 1
-            with _obs_span("block.shared"):
-                x, _, _ = _attn_ffn_block(
-                    env, cfg, params["shared"], x, positions,
-                    kv_cache=(cache["shared_k"][app], cache["shared_v"][app]),
-                    kv_len=kv_len)
-    return x

@@ -127,3 +127,54 @@ def test_moe_ffn_names_its_roadmap_item_for_expert_parallelism():
     y, aux = moe.moe_ffn(TENV, p["blocks"][0]["moe"], x, num_experts=4,
                          experts_per_token=2)
     assert tuple(y.shape) == (1, 2, 16) and aux.ndim == 0
+
+
+#: the six decoder families, one reduced config each
+DECODERS = ("minicpm-2b", "moonshot-v1-16b-a3b", "phi-3-vision-4.2b",
+            "mamba2-370m", "zamba2-1.2b", "nemotron-3-nano-30b-a3b")
+
+
+def _block_spans(cfg, rows):
+    """The ``block.*`` spans of one pass over ``cfg``'s layers, in order,
+    each as (name, depth, attributes); ``rows``: the tokens of the pass
+    times the experts a token."""
+    names = {"M": "block.ssm", "E": "block.moe",
+             "*": "block.attn" if cfg.family == "hybrid_moe"
+             else "block.attn_ffn"}
+    out = []
+    for i, kind in enumerate(cfg.layer_kinds):
+        out.append((names[kind], 0, {"rows": rows} if kind == "E" else {}))
+        if cfg.attn_period and (i + 1) % cfg.attn_period == 0:
+            out.append(("block.shared", 0, {}))
+    return out
+
+
+@pytest.mark.parametrize("arch", DECODERS)
+def test_prefill_and_decode_spans(arch):
+    """The spans ``perfbench/program_trace.py`` reads: the cache's in the
+    prefill only, one a layer (and one a shared-block application) in
+    layer order with the MoE's rows, the logits' last."""
+    from repro_torch import obs
+    cfg = get_config(arch).reduced()
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    B, S, k = 2, 5, cfg.experts_per_token
+    tracer = obs.Tracer(enabled=True)
+    saved = obs.set_tracer(tracer)
+    try:
+        _, cache = api.prefill(TENV, params, {
+            "tokens": torch.arange(B * S).reshape(B, S)}, max_len=8)
+        prefill = [(r.name, r.depth, r.attr_dict()) for r in tracer.spans]
+        tracer.clear()
+        api.decode_step(TENV, params, cache, {
+            "tokens": torch.ones(B, 1, dtype=torch.long),
+            "pos": torch.tensor([S, S - 2])})
+        decode = [(r.name, r.depth, r.attr_dict()) for r in tracer.spans]
+    finally:
+        obs.set_tracer(saved)
+    logits = [("model.logits", 0, {})]
+    assert prefill == ([("model.cache_init", 0, {})]
+                       + _block_spans(cfg, B * S * k) + logits)
+    assert decode == _block_spans(cfg, B * k) + logits
+    if arch == "zamba2-1.2b":
+        assert [n for n, _, _ in prefill].count("block.shared") == 2
